@@ -37,7 +37,9 @@ setup(
     description="TPU-native distributed training framework "
                 "(Horovod-class capabilities on JAX/XLA)",
     packages=find_packages(include=["horovod_tpu*"]),
-    package_data={"horovod_tpu.core": ["libhvdcore.so"]},
+    # horovod_tpu_torch builds its CUDA kernels from these sources at first use
+    package_data={"horovod_tpu.core": ["libhvdcore.so"],
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     cmdclass={"build_py": BuildWithCore, "build_ext": BuildCoreExt},
     entry_points={
         "console_scripts": [

@@ -104,6 +104,11 @@ def _no_artifact_debris_in_checkout():
         f"flight dumps at tmp_path instead")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc); skips without one")
+
+
 @pytest.fixture
 def hvd():
     import horovod_tpu as hvd
