@@ -14,6 +14,18 @@ Kernel launch counters are zeroed just before the main path and read just
 after: every kernel must have run there, four attention launches (one per
 layer) and one cross-entropy launch per forward.
 
+The int8 error-feedback slice adds six kernels (``csrc/quantize.cu``), each
+held against its plain version at the flagship embedding's [64000, 256],
+at a ragged [33, 128], at block 100 and on an all-zero row, and four more
+main paths of five train steps each from the same seed-0 weights: (a)
+``DistributedOptimizer(adamw, compression=ErrorFeedback(Compression.int8))``
+(quantize + dequantize kernels), (b) ``fused_adam`` (quantize_ef +
+fused_adam), (c) ``fused_sgd`` with momentum (quantize_ef + fused_sgd) and
+(d) without (quantize_ef + fused_sgd0). Each path's counters are zeroed
+before it: its two kernels must run once per parameter a step and the
+other quantize kernels never, its loss must fall, and the loss of (a) and
+(b) must end within 5% of plain AdamW's.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -34,6 +46,14 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_TENSOR_FLOPS = 989e12    # dense bf16 tensor cores
 FP32_FLOPS = 67e12            # fp32 outside the tensor cores
 TRAIN_STEPS = 5
+QUANT_SHAPE = (64000, 256)    # the flagship embedding: 16,384,000 elements
+ADAM_HP = (1e-3, 0.9, 0.999, 1e-8)
+# SGD's learning rate for paths (c) and (d): at 1.0 the loss falls at every
+# one of the 5 steps, with momentum 0.9 and without (0.3 and 0.5 bounce
+# without momentum)
+SGD_LR = 1.0
+SGD_MOMENTUM = 0.9
+EF_LOSS_TOL = 0.05            # EF int8 vs plain AdamW, 5th loss, relative
 
 
 def check(ok: bool, msg: str) -> None:
@@ -178,6 +198,219 @@ def phase_xent(torch, xent, dev):
                 bound_by=b_by, library_ms=lib)
 
 
+def ulps(a, b) -> int:
+    """The largest ULP distance between two fp32 tensors of one sign."""
+    import torch
+    return int((a.contiguous().view(torch.int32).long()
+                - b.contiguous().view(torch.int32).long()).abs().max())
+
+
+# shape, row set to zero (None: none). [33, 128] is ragged against the
+# Pallas 32-row tile; block 100 meets the JAX XLA path (its rows of fp32 take
+# 16-byte vectors here); block 1030 is no multiple of 4, so it takes the
+# kernels' scalar path, and longer than 1024, so the quantizers read it twice
+QUANT_CASES = [(QUANT_SHAPE, None), ((33, 128), None), ((77, 100), None),
+               ((6, 256), 3), ((5, 1030), None)]
+_PALLAS = "horovod_tpu/ops/pallas_quantize.py"
+_NO_LIBRARY = "none: no single PyTorch call computes it"
+
+
+def _record(name, line, err, timing):
+    return dict(name=name, route="cuda",
+                source="horovod_tpu_torch/csrc/quantize.cu",
+                replaces=f"{_PALLAS}:{line}", max_abs_err=err, **timing)
+
+
+def _timing(name, kernel, plain, library, n_bytes, n_ops, why_none=None):
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    lib = time_ms(library) if library is not None else None
+    b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS)
+    say(name, timed=f"{QUANT_SHAPE[0]}x{QUANT_SHAPE[1]} fp32", ms=ms,
+        plain_ms=plain_ms, library_ms=lib if lib is not None else why_none,
+        bound_ms=b_ms, bound_by=b_by)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_quantizers(torch, quantize, dev):
+    """quantize and quantize_ef against plain_quantize(_ef): codes within
+    ±1 (the count of differing codes is expected to be 0), scales within 1
+    ULP, the residual within 1e-6 where the codes agree; then timed."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for name, line, kernel, plain in (
+            ("quantize", 38, quantize.quantize_cuda, quantize.plain_quantize),
+            ("quantize_ef", 108, quantize.quantize_ef_cuda,
+             quantize.plain_quantize_ef)):
+        main_err = None
+        for shape, zero_row in QUANT_CASES:
+            dtypes = ((torch.float32, torch.bfloat16) if shape == QUANT_SHAPE
+                      else (torch.float32,))
+            for dt in dtypes:
+                x = torch.randn(*shape, generator=g, device=dev).to(dt)
+                if zero_row is not None:
+                    x[zero_row] = 0.0
+                got, ref = kernel(x), plain(x)
+                torch.cuda.synchronize()
+                code = (got[0].int() - ref[0].int()).abs()
+                same = code == 0
+                err = max_err(got[0].float() * got[1],
+                              ref[0].float() * ref[1])
+                kv = dict(max_code_diff=int(code.max()),
+                          codes_differing=int((~same).sum()),
+                          scale_ulps=ulps(got[1], ref[1]))
+                if name == "quantize_ef":
+                    kv["max_abs_err_residual"] = max_err(got[2][same],
+                                                         ref[2][same])
+                    err = max(err, kv["max_abs_err_residual"])
+                say(name, shape=f"{shape[0]}x{shape[1]}",
+                    dtype=str(dt).split(".")[-1], zero_row=zero_row, **kv)
+                check(kv["max_code_diff"] <= 1 and kv["scale_ulps"] <= 1
+                      and kv.get("max_abs_err_residual", 0.0) <= 1e-6,
+                      f"{name} disagrees with the plain version at {shape} "
+                      f"{dt}: {kv}")
+                if zero_row is not None:
+                    check(float(got[1][zero_row]) == 1.0
+                          and not got[0][zero_row].any(),
+                          f"{name}: an all-zero row must give scale 1 and "
+                          f"zero codes")
+                if main_err is None:
+                    main_err = err
+        x = torch.randn(*QUANT_SHAPE, generator=g, device=dev)
+        n, rows = x.numel(), QUANT_SHAPE[0]
+        n_bytes = n * 4 + n + rows * 4 + (n * 4 if name == "quantize_ef"
+                                          else 0)
+        timing = _timing(name, lambda: kernel(x), lambda: plain(x), None,
+                         n_bytes, n * (6 if name == "quantize_ef" else 4),
+                         _NO_LIBRARY + " (per-row absmax, divide, round)")
+        out.append(_record(name, line, main_err, timing))
+    return out
+
+
+def phase_optimizer_kernels(torch, quantize, dev):
+    """dequantize, fused_sgd0, fused_sgd and fused_adam against their plain
+    versions on the same codes, scales and moments: every output within
+    1e-6 (both compute in fp32 from the same inputs); then timed."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    lr, b1, b2, eps = ADAM_HP
+    t = 3
+    bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+    specs = (
+        ("dequantize", 49, lambda a: quantize.dequantize_cuda(a[0], a[1]),
+         lambda a: quantize.plain_dequantize(a[0], a[1])),
+        ("fused_sgd0", 206,
+         lambda a: quantize.fused_sgd0_cuda(a[0], a[1], SGD_LR),
+         lambda a: quantize.plain_fused_sgd0(a[0], a[1], SGD_LR)),
+        ("fused_sgd", 212,
+         lambda a: quantize.fused_sgd_cuda(a[0], a[1], a[2], SGD_LR,
+                                           SGD_MOMENTUM),
+         lambda a: quantize.plain_fused_sgd(a[0], a[1], a[2], SGD_LR,
+                                            SGD_MOMENTUM)),
+        ("fused_adam", 221,
+         lambda a: quantize.fused_adam_cuda(a[0], a[1], a[2], a[3], lr, b1,
+                                            b2, eps, bc1, bc2),
+         lambda a: quantize.plain_fused_adam(a[0], a[1], a[2], a[3], lr, b1,
+                                             b2, eps, bc1, bc2)),
+    )
+
+    def operands(shape, zero_row):
+        x = torch.randn(*shape, generator=g, device=dev)
+        if zero_row is not None:
+            x[zero_row] = 0.0
+        vals, scales = quantize.plain_quantize(x)
+        mom = torch.randn(*shape, generator=g, device=dev) * 0.1
+        # a second moment of the same scale as the first, as Adam keeps it,
+        # so the deltas stay near lr (a vanishing v would make them large)
+        vel = (torch.randn(*shape, generator=g, device=dev) * 0.1).square() \
+            + 1e-6
+        return vals, scales, mom, vel
+
+    out = []
+    for name, line, kernel, plain in specs:
+        main_err = None
+        for shape, zero_row in QUANT_CASES:
+            a = operands(shape, zero_row)
+            got, ref = kernel(a), plain(a)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            errs = [max_err(x, y) for x, y in zip(got, ref)]
+            say(name, shape=f"{shape[0]}x{shape[1]}", zero_row=zero_row,
+                max_abs_err=",".join(map(str, errs)), tol=1e-6)
+            check(max(errs) <= 1e-6, f"{name} disagrees with the plain "
+                                     f"version at {shape}: {errs}")
+            if main_err is None:
+                main_err = max(errs)
+        a = operands(QUANT_SHAPE, None)
+        n, rows = a[0].numel(), QUANT_SHAPE[0]
+        state = {"dequantize": 0, "fused_sgd0": 0, "fused_sgd": 1,
+                 "fused_adam": 2}[name]
+        # codes and scales in, the state read and written, one fp32 output
+        n_bytes = n + rows * 4 + state * 2 * n * 4 + n * 4
+        n_ops = n * {"dequantize": 1, "fused_sgd0": 2, "fused_sgd": 4,
+                     "fused_adam": 14}[name]
+        library, why = None, _NO_LIBRARY
+        if name == "dequantize":
+            library = lambda: torch.mul(a[0], a[1])          # noqa: E731
+        elif name == "fused_adam":
+            # one fused Adam step on the same (already dequantized) fp32
+            # gradient: it skips the dequantize, a lower yardstick
+            p = torch.nn.Parameter(torch.zeros(QUANT_SHAPE, device=dev))
+            p.grad = quantize.plain_dequantize(a[0], a[1])
+            adam = torch.optim.Adam([p], lr=lr, betas=(b1, b2), eps=eps,
+                                    fused=True)
+            library = adam.step
+        timing = _timing(name, lambda: kernel(a), lambda: plain(a), library,
+                         n_bytes, n_ops, why)
+        out.append(_record(name, line, main_err, timing))
+    return out
+
+
+def drive_int8_path(torch, label, factory, pair, cfg, init_sd, batch,
+                    counters, quant):
+    """Five train steps of the flagship from the seed-0 weights through
+    ``make_train_step`` with the optimizer ``factory`` builds; the counters
+    are zeroed just before and read just after. Returns (losses, launches
+    of ``quant``'s kernels by name, median step ms)."""
+    from horovod_tpu_torch.models import (Transformer, init_opt_state,
+                                          make_train_step)
+    model = Transformer(cfg)
+    model.load_state_dict(init_sd)
+    opt = init_opt_state(factory, model)
+    step = make_train_step(cfg)
+    for c in (*counters, *quant.values()):
+        c.launches = 0
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss, _ = step(model, opt, *batch)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    got = {name: fn.launches for name, fn in quant.items()}
+    flash, xent = (c.launches for c in counters)
+    timed = sorted(step_s[1:])
+    med = timed[len(timed) // 2]
+    n_leaves = len(list(model.parameters()))
+    say(f"int8_{label}", steps=TRAIN_STEPS,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        step_ms=",".join(f"{1e3 * s:.3f}" for s in step_s),
+        median_step_ms_after_warmup=1e3 * med,
+        tokens_per_s=batch[0].numel() / med,
+        launches=",".join(f"{k}:{v}" for k, v in got.items()),
+        flash_attention_fwd=flash, xent_fwd=xent)
+    check(all(map(math.isfinite, losses)), f"{label}: non-finite loss "
+                                           f"{losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    want = {k: (n_leaves * TRAIN_STEPS if k in pair else 0) for k in quant}
+    check(got == want, f"{label}: quantize kernels launched {got}, "
+                       f"expected {want}")
+    check((flash, xent) == (cfg.n_layers * TRAIN_STEPS, TRAIN_STEPS),
+          f"{label}: flash/xent launched {(flash, xent)}")
+    del model, opt
+    return losses, got, 1e3 * med
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -187,7 +420,10 @@ def main() -> int:
     from horovod_tpu_torch.entry import entry
     from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
                                           make_forward, make_train_step)
-    from horovod_tpu_torch.ops import _build, attention, xent
+    from horovod_tpu_torch import (DistributedOptimizer, ErrorFeedback,
+                                   fused_adam, fused_sgd)
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.ops import _build, attention, quantize, xent
 
     # full fp32 in every fp32 comparison (cuBLAS would otherwise be free to
     # pick TF32 for the plain versions)
@@ -208,12 +444,14 @@ def main() -> int:
     # -- build: one nvcc per kernel source, all started together
     t0 = time.perf_counter()
     _build.build_all()
-    say("build", kernels=",".join(_build.KERNELS),
+    say("build", kernels=",".join(_build.ENTRIES),
         seconds=time.perf_counter() - t0)
 
     # -- each kernel against its plain version, and timed
     kernels = [phase_flash(torch, attention, dev),
-               phase_xent(torch, xent, dev)]
+               phase_xent(torch, xent, dev),
+               *phase_quantizers(torch, quantize, dev),
+               *phase_optimizer_kernels(torch, quantize, dev)]
 
     # -- the main path: entry() forward, then the trainer
     counters = (attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda)
@@ -241,6 +479,8 @@ def main() -> int:
         cpu_fp32_loss=ref, rel_err=rel, tol_rel=2e-2, first_call_s=fwd_s)
     check(rel <= 2e-2, f"entry loss {loss} vs CPU fp32 {ref}: {rel} > 2e-2")
 
+    # the int8 paths below start from the same seed-0 weights
+    init_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = init_opt_state(adamw, model)
     step = make_train_step(model.cfg)
     losses, step_s = [], []
@@ -269,6 +509,46 @@ def main() -> int:
         k["launches"] = n
     say("main_path", flash_attention_fwd_launches=launches[0],
         xent_fwd_launches=launches[1], forwards=forwards)
+    del opt
+
+    # -- the int8 error-feedback paths, each from the seed-0 weights
+    quant = {"quantize": quantize.quantize_cuda,
+             "quantize_ef": quantize.quantize_ef_cuda,
+             "dequantize": quantize.dequantize_cuda,
+             "fused_sgd0": quantize.fused_sgd0_cuda,
+             "fused_sgd": quantize.fused_sgd_cuda,
+             "fused_adam": quantize.fused_adam_cuda}
+    ef8 = ErrorFeedback(Compression.int8)
+    paths = (
+        ("a_adamw_ef", lambda ps: DistributedOptimizer(
+            adamw(ps), compression=ef8), ("quantize", "dequantize")),
+        ("b_fused_adam", lambda ps: DistributedOptimizer(
+            fused_adam(ADAM_HP[0]), ps, compression=ef8),
+         ("quantize_ef", "fused_adam")),
+        ("c_fused_sgd_momentum", lambda ps: DistributedOptimizer(
+            fused_sgd(SGD_LR, momentum=SGD_MOMENTUM), ps, compression=ef8),
+         ("quantize_ef", "fused_sgd")),
+        ("d_fused_sgd", lambda ps: DistributedOptimizer(
+            fused_sgd(SGD_LR), ps, compression=ef8),
+         ("quantize_ef", "fused_sgd0")),
+    )
+    quant_launches = {}
+    for label, factory, pair in paths:
+        path_losses, got, _ = drive_int8_path(
+            torch, label, factory, pair, model.cfg, init_sd,
+            (tokens, targets), counters, quant)
+        for k in pair:
+            quant_launches[k] = got[k]
+        if label[0] in "ab":
+            rel = abs(path_losses[-1] - losses[-1]) / abs(losses[-1])
+            say(f"int8_{label}", loss5=path_losses[-1],
+                adamw_loss5=losses[-1], rel=rel, tol_rel=EF_LOSS_TOL)
+            check(rel <= EF_LOSS_TOL,
+                  f"{label}: 5th loss {path_losses[-1]} is {rel} off plain "
+                  f"AdamW's {losses[-1]}")
+    for k in kernels[2:]:
+        k["launches"] = quant_launches[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} never ran on its path")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

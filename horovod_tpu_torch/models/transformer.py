@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.common.basics import resolve_device
+from horovod_tpu_torch.common.tree import flatten_dotted
 from horovod_tpu_torch.models.scan_util import multi_step
 from horovod_tpu_torch.ops.attention import attend
 from horovod_tpu_torch.ops.xent import fused_softmax_xent
@@ -98,17 +99,8 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX parameter tree (nested dicts of arrays, as ``init_params`` or
     ``jax.device_get`` give it) → a :class:`Transformer` ``state_dict``,
     keyed by the tree's path joined with dots (``layers.wq``)."""
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix):
-        for key, val in node.items():
-            if isinstance(val, Mapping):
-                walk(val, prefix + key + ".")
-            else:
-                out[prefix + key] = torch.from_numpy(np.array(val))
-
-    walk(tree, "")
-    return out
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in flatten_dotted(tree).items()}
 
 
 def _rmsnorm(x, g):

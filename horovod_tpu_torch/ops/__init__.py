@@ -7,3 +7,11 @@ from horovod_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention_with_lse,
 )
 from horovod_tpu_torch.ops.xent import fused_softmax_xent  # noqa: F401
+from horovod_tpu_torch.ops.quantize import (  # noqa: F401
+    block_dequantize,
+    block_quantize,
+    block_quantize_ef,
+    fused_adam_apply,
+    fused_sgd_apply,
+)
+from horovod_tpu_torch.ops.reduce_op import ReduceOp  # noqa: F401

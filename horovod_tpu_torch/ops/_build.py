@@ -1,7 +1,7 @@
 """Builds the port's CUDA C++ kernels and loads them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point, so ``nvcc`` compiles
-it in seconds without PyTorch's headers. A build goes to
+Each ``csrc/<name>.cu`` exposes plain C entry points (``SIGNATURES``), so
+``nvcc`` compiles it in seconds without PyTorch's headers. A build goes to
 ``build/horovod_tpu_torch/<name>-<hash>.so`` beside the package; the hash
 covers the source, the headers under ``csrc/`` and the compiler flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
@@ -28,16 +28,31 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "horovod_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-# argument types of each library's C entry (csrc/<name>.cu); every entry
-# returns cudaGetLastError() as an int
+_I, _LL, _P, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
+# each library (csrc/<name>.cu) and the argument types of its C entries;
+# every entry returns cudaGetLastError() as an int, and every library
+# exports ``<name>_error`` for the message
 SIGNATURES = {
-    "flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
-                       _I, ctypes.c_float, _I, _P],
-    "xent_fwd": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "flash_attn_fwd": {
+        "flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                           _I, _F, _I, _P],
+    },
+    "xent_fwd": {
+        "xent_fwd": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _P],
+    },
+    "quantize": {
+        "quantize": [_P, _P, _P, _LL, _I, _I, _I, _P],
+        "quantize_ef": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+        "dequantize": [_P, _P, _P, _LL, _I, _I, _P],
+        "fused_sgd0": [_P, _P, _P, _F, _LL, _I, _I, _P],
+        "fused_sgd": [_P, _P, _P, _P, _P, _F, _F, _LL, _I, _I, _P],
+        "fused_adam": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F,
+                       _LL, _I, _I, _P],
+    },
 }
 KERNELS = tuple(SIGNATURES)
+ENTRIES = tuple(e for lib in SIGNATURES.values() for e in lib)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,7 +112,8 @@ def build_all(names: Iterable[str] = KERNELS) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built at first use."""
+    """The loaded library ``csrc/<name>.cu``, built at first use, with
+    every entry of ``SIGNATURES[name]`` bound."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -108,17 +124,19 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(target)
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = SIGNATURES[name], ctypes.c_int
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            err = getattr(lib, name + "_error")
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            lib.error_string = err
             _libs[name] = lib
         return _libs[name]
 
 
-def check(lib: ctypes.CDLL, name: str, err: int) -> None:
-    """Raise on the ``cudaGetLastError()`` value entry ``name`` returned;
-    each library exports ``<name>_error`` for the message."""
+def check(lib: ctypes.CDLL, entry: str, err: int) -> None:
+    """Raise on the ``cudaGetLastError()`` value that ``entry`` of ``lib``
+    returned."""
     if err != 0:
-        fn = getattr(lib, name + "_error")
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(
-            f"{name}: CUDA error {err}: {fn(err).decode(errors='replace')}")
+        raise RuntimeError(f"{entry}: CUDA error {err}: "
+                           f"{lib.error_string(err).decode(errors='replace')}")

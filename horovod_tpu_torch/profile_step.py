@@ -1,9 +1,13 @@
 """Where the flagship train step's time goes on the card.
 
     python -m horovod_tpu_torch.profile_step [--steps N] [--out FILE]
+        [--optimizer adamw|ef_adamw|fused_adam|fused_sgd_momentum|fused_sgd]
 
-Runs ``entry()``'s model through ``make_train_step`` with AdamW: three
-warm-up steps, N steps timed on the host clock, then N steps under
+Runs ``entry()``'s model through ``make_train_step`` with the optimizer
+(AdamW by default; the others are chip_smoke.py's int8 error-feedback
+paths: ``ef_adamw`` is ``DistributedOptimizer(adamw, compression=
+ErrorFeedback(Compression.int8))``, the ``fused_*`` ones the fused int8
+optimizers at chip_smoke.py's learning rates): three warm-up steps, N steps timed on the host clock, then N steps under
 ``torch.profiler`` (CPU and CUDA activity). Prints one JSON object: the
 wall time per step without and with the profiler, the device time
 per step summed over the kernels (one stream, so the kernels do not
@@ -22,12 +26,18 @@ import time
 import torch
 
 
+_QUANTIZE_KERNELS = ("quantize_kernel", "fused_sgd0_kernel",
+                     "fused_sgd_kernel", "fused_adam_kernel")
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in name:
         return "port: flash_attn_fwd"
     if "xent_fwd_kernel" in name:
         return "port: xent_fwd"
+    if any(k in name for k in _QUANTIZE_KERNELS):   # dequantize_kernel too
+        return "port: quantize.cu"
     if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "cublas",
                               "nvjet", "sm90_")):
         return "matmul (cuBLAS)"
@@ -36,12 +46,35 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile(steps: int) -> dict:
+def _optimizers():
+    from horovod_tpu_torch import (DistributedOptimizer, ErrorFeedback,
+                                   fused_adam, fused_sgd)
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.models import adamw
+    ef8 = ErrorFeedback(Compression.int8)
+    return {
+        "adamw": adamw,
+        "ef_adamw": lambda ps: DistributedOptimizer(adamw(ps),
+                                                    compression=ef8),
+        "fused_adam": lambda ps: DistributedOptimizer(fused_adam(1e-3), ps,
+                                                      compression=ef8),
+        "fused_sgd_momentum": lambda ps: DistributedOptimizer(
+            fused_sgd(1.0, momentum=0.9), ps, compression=ef8),
+        "fused_sgd": lambda ps: DistributedOptimizer(fused_sgd(1.0), ps,
+                                                     compression=ef8),
+    }
+
+
+OPTIMIZERS = ("adamw", "ef_adamw", "fused_adam", "fused_sgd_momentum",
+              "fused_sgd")
+
+
+def profile(steps: int, optimizer: str = "adamw") -> dict:
     from horovod_tpu_torch.entry import entry
-    from horovod_tpu_torch.models import adamw, init_opt_state, make_train_step
+    from horovod_tpu_torch.models import init_opt_state, make_train_step
 
     _, (model, tokens, targets) = entry()
-    opt = init_opt_state(adamw, model)
+    opt = init_opt_state(_optimizers()[optimizer], model)
     step = make_train_step(model.cfg)
     for _ in range(3):
         step(model, opt, tokens, targets)
@@ -82,6 +115,7 @@ def profile(steps: int) -> dict:
     busy_ms = busy_us / 1e3 / steps
     return {
         "device": torch.cuda.get_device_name(0),
+        "optimizer": optimizer,
         "steps": steps,
         "tokens_per_step": tokens.numel(),
         "wall_ms_per_step_unprofiled": plain_wall_ms,
@@ -102,10 +136,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
-    doc = profile(args.steps)
+    doc = profile(args.steps, args.optimizer)
     text = json.dumps(doc, indent=1)
     if args.out:
         with open(args.out, "w") as f:

@@ -11,7 +11,7 @@ conftest left out:
 import pytest
 import torch
 
-from horovod_tpu_torch.ops import attention, xent
+from horovod_tpu_torch.ops import attention, quantize, xent
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +126,106 @@ def test_xent_kernel_refuses_fp16(dev):
     with pytest.raises(TypeError):
         xent.fused_softmax_xent(_rand(dev, 4, 8, dtype=torch.float16),
                                 torch.zeros(4, dtype=torch.long, device=dev))
+
+
+# -- the block-int8 codec and the fused optimizer kernels ----------------------
+
+def _ulps(a, b):
+    """ULP distance of two positive fp32 tensors."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+QUANT_SHAPES = [(64000, 256), (33, 128), (7, 100), (5, 1), (3, 1030)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+def test_quantizers_match_plain(dev, shape, dtype):
+    x = _rand(dev, *shape, dtype=dtype, seed=5)
+    x[shape[0] // 2] = 0.0                       # an all-zero row
+    before = (quantize.quantize_cuda.launches,
+              quantize.quantize_ef_cuda.launches)
+    vals, scales = quantize.block_quantize(x)
+    v2, s2, res = quantize.block_quantize_ef(x)
+    assert (quantize.quantize_cuda.launches,
+            quantize.quantize_ef_cuda.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    rv, rs, rres = quantize.plain_quantize_ef(x)
+    torch.cuda.synchronize()
+    for v, s in ((vals, scales), (v2, s2)):
+        assert int((v.int() - rv.int()).abs().max()) <= 1
+        assert _ulps(s, rs) <= 1
+    same = v2 == rv
+    assert float((res - rres)[same].abs().max()) <= 1e-6
+    assert float(scales[shape[0] // 2]) == 1.0
+    assert not vals[shape[0] // 2].any()
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+def test_optimizer_kernels_match_plain(dev, shape):
+    vals, scales = quantize.plain_quantize(_rand(dev, *shape, seed=6))
+    mom = _rand(dev, *shape, seed=7)
+    m = _rand(dev, *shape, seed=8) * 0.1
+    v = _rand(dev, *shape, seed=9).abs() * 0.01
+    hp = (1e-3, 0.9, 0.999, 1e-8, 0.271, 0.002997)
+    pairs = [
+        (quantize.block_dequantize(vals, scales),
+         quantize.plain_dequantize(vals, scales)),
+        (quantize.fused_sgd_apply(vals, scales, None, 0.5, 0.0)[0],
+         quantize.plain_fused_sgd0(vals, scales, 0.5)),
+        (quantize.fused_sgd_apply(vals, scales, mom, 0.5, 0.9),
+         quantize.plain_fused_sgd(vals, scales, mom, 0.5, 0.9)),
+        (quantize.fused_adam_apply(vals, scales, m, v, *hp),
+         quantize.plain_fused_adam(vals, scales, m, v, *hp)),
+    ]
+    torch.cuda.synchronize()
+    for got, ref in pairs:
+        for g, r in zip(*((got, ref) if isinstance(got, tuple)
+                          else ((got,), (ref,)))):
+            assert float((g - r).abs().max()) <= 1e-6
+
+
+def test_optimizer_kernels_in_place(dev):
+    vals, scales = quantize.plain_quantize(_rand(dev, 40, 256, seed=10))
+    m, v = _rand(dev, 40, 256, seed=11), _rand(dev, 40, 256, seed=12).abs()
+    hp = (1e-3, 0.9, 0.999, 1e-8, 0.1, 0.001)
+    ref = quantize.plain_fused_adam(vals, scales, m, v, *hp)
+    got = quantize.fused_adam_apply(vals, scales, m, v, *hp, inplace=True)
+    assert got[1] is m and got[2] is v
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-6
+
+
+def test_fused_optimizer_step_on_card_matches_cpu(dev):
+    from horovod_tpu_torch import DistributedOptimizer, ErrorFeedback, fused_adam
+    from horovod_tpu_torch.compression import Compression
+    ps = [torch.nn.Parameter(_rand(dev, 300, 7, seed=13)) for _ in range(2)]
+    cpu = [torch.nn.Parameter(p.detach().cpu()) for p in ps]
+    opts = [DistributedOptimizer(fused_adam(1e-3), group,
+                                 compression=ErrorFeedback(Compression.int8))
+            for group in (ps, cpu)]
+    for step in range(3):
+        for group in (ps, cpu):
+            for i, p in enumerate(group):
+                p.grad = _rand(dev, 300, 7, seed=20 + step + i).to(p.device)
+        for o in opts:
+            o.step()
+    for a, b in zip(ps, cpu):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("call", [
+    lambda d: quantize.block_quantize(torch.zeros(4, 256, device=d,
+                                                  dtype=torch.float16)),
+    lambda d: quantize.block_quantize_ef(torch.zeros(4, 256, device=d,
+                                                     dtype=torch.float64)),
+    lambda d: quantize.block_dequantize(
+        torch.zeros(4, 256, device=d), torch.ones(4, 1, device=d)),
+    lambda d: quantize.fused_sgd_apply(
+        torch.zeros(4, 256, dtype=torch.int8, device=d),
+        torch.ones(4, 1, device=d, dtype=torch.float64), None, 0.1, 0.0),
+], ids=["fp16", "fp64", "float_codes", "fp64_scales"])
+def test_quantize_kernels_refuse_unsupported_dtypes(dev, call):
+    with pytest.raises(TypeError):
+        call(dev)

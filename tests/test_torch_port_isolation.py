@@ -109,3 +109,48 @@ def test_multi_process_world_raises(monkeypatch):
     with pytest.raises(NotImplementedError, match="data-parallel"):
         horovod_tpu_torch.init()
     assert not horovod_tpu_torch.is_initialized()
+
+
+def test_new_modules_import_and_export():
+    from horovod_tpu_torch.compression import Compression, ErrorFeedback
+    from horovod_tpu_torch.ops import quantize, reduce_op
+    from horovod_tpu_torch.train import fused_apply, optimizer
+    assert horovod_tpu_torch.Compression is Compression
+    assert horovod_tpu_torch.ErrorFeedback is ErrorFeedback
+    assert horovod_tpu_torch.DistributedOptimizer is \
+        optimizer.DistributedOptimizer
+    assert horovod_tpu_torch.fused_adam is fused_apply.fused_adam
+    assert horovod_tpu_torch.ReduceOp is reduce_op.ReduceOp
+    assert len(quantize.LAUNCHERS) == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("fn", ["block_quantize", "block_quantize_ef"])
+def test_quantizers_compute_nowhere_but_cpu_or_kernel(fn, dtype):
+    """The plain versions are for CPU tensors only: a tensor on another
+    device (here the meta device), or operands split across devices, raise
+    instead of being computed in plain PyTorch."""
+    from horovod_tpu_torch.ops import quantize
+    wrapper = getattr(quantize, fn)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wrapper(torch.empty(4, 256, device="meta", dtype=dtype))
+    if fn == "block_quantize_ef":
+        with pytest.raises(ValueError, match="one CUDA device"):
+            wrapper(torch.zeros(4, 256, dtype=dtype),
+                    torch.empty(4, 256, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_cuda_tensor_of_unsupported_dtype_raises(dtype):
+    """A CUDA tensor the kernels do not take raises; it does not fall back
+    to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from horovod_tpu_torch.ops import quantize
+    x = torch.zeros(4, 256, device="cuda", dtype=dtype)
+    before = [f.launches for f in quantize.LAUNCHERS]
+    for wrapper in (quantize.block_quantize, quantize.block_quantize_ef):
+        with pytest.raises(TypeError):
+            wrapper(x)
+    assert [f.launches for f in quantize.LAUNCHERS] == before
