@@ -19,13 +19,9 @@ need ``block % 128 == 0``).
 Semantics, on both paths: ``scale = absmax / 127`` (1 for an all-zero
 row), codes ``clip(round_half_even(x / scale), -127, 127)``; the divisions
 are IEEE divisions and the hyperparameters fp32, as in the JAX package. The
-optimizer deltas are optax-convention (``params += delta``).
-
-In place: ``block_quantize_ef(..., out_residual=r)`` writes the residual
-into ``r``, and ``inplace=True`` makes ``fused_sgd_apply`` and
-``fused_adam_apply`` write the new moments over the ones they were given
-(the JAX functions return new arrays; the port's optimizer keeps its state
-in place).
+optimizer deltas are optax-convention (``params += delta``). As the JAX
+functions, every wrapper returns new tensors and leaves its operands as
+they were.
 """
 
 from __future__ import annotations
@@ -158,8 +154,7 @@ def _stream(t: torch.Tensor) -> int:
 
 # -- the kernels' launchers (CUDA tensors) ------------------------------------
 
-def _quantizer_cuda(entry: str, blocks: torch.Tensor,
-                    out_residual: Optional[torch.Tensor]):
+def _quantizer_cuda(entry: str, blocks: torch.Tensor):
     n, block = _check_blocks(entry, blocks)
     if blocks.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{entry} takes fp32 or bf16 blocks, got "
@@ -170,14 +165,7 @@ def _quantizer_cuda(entry: str, blocks: torch.Tensor,
     scales = torch.empty((n, 1), dtype=torch.float32, device=dev)
     res = None
     if entry == "quantize_ef":
-        res = out_residual
-        if res is None:
-            res = torch.empty((n, block), dtype=torch.float32, device=dev)
-        _check_like(entry, "out_residual", res, (n, block))
-        _check_kernel_operands(entry, residual=res)
-        if res.device != dev or res.data_ptr() == blocks.data_ptr():
-            raise ValueError(f"{entry} writes its residual to a separate "
-                             f"fp32 tensor on the blocks' device")
+        res = torch.empty((n, block), dtype=torch.float32, device=dev)
     if n == 0:
         return vals, scales, res, False
     lib = _build.library("quantize")
@@ -194,20 +182,18 @@ def quantize_cuda(blocks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``quantize`` (``csrc/quantize.cu``), which replaces
     ``_quantize_kernel`` (``horovod_tpu/ops/pallas_quantize.py``). Counts
     its launches in ``quantize_cuda.launches``."""
-    vals, scales, _, launched = _quantizer_cuda("quantize", blocks, None)
+    vals, scales, _, launched = _quantizer_cuda("quantize", blocks)
     if launched:
         quantize_cuda.launches += 1
     return vals, scales
 
 
-def quantize_ef_cuda(blocks: torch.Tensor,
-                     out_residual: Optional[torch.Tensor] = None
+def quantize_ef_cuda(blocks: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``quantize_ef``, which replaces ``_quantize_ef_kernel``: the
     codes, scales and residual in one pass. Counts in
     ``quantize_ef_cuda.launches``."""
-    vals, scales, res, launched = _quantizer_cuda("quantize_ef", blocks,
-                                                  out_residual)
+    vals, scales, res, launched = _quantizer_cuda("quantize_ef", blocks)
     if launched:
         quantize_ef_cuda.launches += 1
     return vals, scales, res
@@ -245,16 +231,15 @@ def fused_sgd0_cuda(vals, scales, lr) -> torch.Tensor:
     return delta
 
 
-def fused_sgd_cuda(vals, scales, mom, lr, momentum, inplace: bool = False
+def fused_sgd_cuda(vals, scales, mom, lr, momentum
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``fused_sgd``, which replaces ``_fused_sgd_kernel``; with
-    ``inplace`` the new momentum overwrites ``mom``. Counts in
-    ``fused_sgd_cuda.launches``."""
+    """Launch ``fused_sgd``, which replaces ``_fused_sgd_kernel``. Counts
+    in ``fused_sgd_cuda.launches``."""
     n, block = _check_scales("fused_sgd", vals, scales)
     _check_like("fused_sgd", "mom", mom, (n, block))
     _check_kernel_operands("fused_sgd", vals=vals, scales=scales, mom=mom)
     delta = torch.empty((n, block), dtype=torch.float32, device=vals.device)
-    new_mom = mom if inplace else torch.empty_like(delta)
+    new_mom = torch.empty_like(delta)
     if n == 0:
         return delta, new_mom
     lib = _build.library("quantize")
@@ -267,19 +252,16 @@ def fused_sgd_cuda(vals, scales, mom, lr, momentum, inplace: bool = False
     return delta, new_mom
 
 
-def fused_adam_cuda(vals, scales, m, v, lr, b1, b2, eps, bc1, bc2,
-                    inplace: bool = False
+def fused_adam_cuda(vals, scales, m, v, lr, b1, b2, eps, bc1, bc2
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``fused_adam``, which replaces ``_fused_adam_kernel``; with
-    ``inplace`` the new moments overwrite ``m`` and ``v``. Counts in
-    ``fused_adam_cuda.launches``."""
+    """Launch ``fused_adam``, which replaces ``_fused_adam_kernel``. Counts
+    in ``fused_adam_cuda.launches``."""
     n, block = _check_scales("fused_adam", vals, scales)
     _check_like("fused_adam", "m", m, (n, block))
     _check_like("fused_adam", "v", v, (n, block))
     _check_kernel_operands("fused_adam", vals=vals, scales=scales, m=m, v=v)
     delta = torch.empty((n, block), dtype=torch.float32, device=vals.device)
-    new_m = m if inplace else torch.empty_like(delta)
-    new_v = v if inplace else torch.empty_like(delta)
+    new_m, new_v = torch.empty_like(delta), torch.empty_like(delta)
     if n == 0:
         return delta, new_m, new_v
     lib = _build.library("quantize")
@@ -310,22 +292,15 @@ def block_quantize(blocks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return quantize_cuda(blocks)
 
 
-def block_quantize_ef(blocks: torch.Tensor,
-                      out_residual: Optional[torch.Tensor] = None
+def block_quantize_ef(blocks: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[n_blocks, block]`` floats → ``(codes, scales, fp32 residual)``,
     ``residual = blocks − dequantize(codes, scales)``, the error-feedback
-    carry, from the same pass as the codes. ``out_residual`` (fp32,
-    ``[n_blocks, block]``, not ``blocks`` itself) receives the residual."""
+    carry, from the same pass as the codes."""
     _check_blocks("block_quantize_ef", blocks)
-    if _on_cpu("block_quantize_ef", blocks, out_residual):
-        vals, scales, res = plain_quantize_ef(blocks)
-        if out_residual is not None:
-            _check_like("block_quantize_ef", "out_residual", out_residual,
-                        res.shape)
-            res = out_residual.copy_(res)
-        return vals, scales, res
-    return quantize_ef_cuda(blocks, out_residual)
+    if _on_cpu("block_quantize_ef", blocks):
+        return plain_quantize_ef(blocks)
+    return quantize_ef_cuda(blocks)
 
 
 def block_dequantize(vals: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -338,8 +313,7 @@ def block_dequantize(vals: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 def fused_sgd_apply(vals: torch.Tensor, scales: torch.Tensor,
-                    mom: Optional[torch.Tensor], lr, momentum,
-                    inplace: bool = False):
+                    mom: Optional[torch.Tensor], lr, momentum):
     """int8 codes + scales (+ momentum blocks) → ``(delta, new_mom)``:
     dequantize and the optax ``sgd(lr, momentum)`` update in one pass.
     ``mom=None`` selects the momentum-free kernel (``new_mom`` is None)."""
@@ -349,16 +323,15 @@ def fused_sgd_apply(vals: torch.Tensor, scales: torch.Tensor,
     if _on_cpu("fused_sgd_apply", vals, scales, mom):
         if mom is None:
             return plain_fused_sgd0(vals, scales, lr), None
-        delta, new_mom = plain_fused_sgd(vals, scales, mom, lr, momentum)
-        return delta, (mom.copy_(new_mom) if inplace else new_mom)
+        return plain_fused_sgd(vals, scales, mom, lr, momentum)
     if mom is None:
         return fused_sgd0_cuda(vals, scales, lr), None
-    return fused_sgd_cuda(vals, scales, mom, lr, momentum, inplace)
+    return fused_sgd_cuda(vals, scales, mom, lr, momentum)
 
 
 def fused_adam_apply(vals: torch.Tensor, scales: torch.Tensor,
                      m: torch.Tensor, v: torch.Tensor, lr, b1, b2, eps, bc1,
-                     bc2, inplace: bool = False):
+                     bc2):
     """int8 codes + scales + Adam moments → ``(delta, new_m, new_v)`` with
     optax.adam numerics; ``bc1``/``bc2`` are the caller's fp32 bias
     corrections ``1 − βₖᵗ``."""
@@ -366,10 +339,6 @@ def fused_adam_apply(vals: torch.Tensor, scales: torch.Tensor,
     _check_like("fused_adam_apply", "m", m, (n, block))
     _check_like("fused_adam_apply", "v", v, (n, block))
     if _on_cpu("fused_adam_apply", vals, scales, m, v):
-        delta, nm, nv = plain_fused_adam(vals, scales, m, v, lr, b1, b2, eps,
-                                         bc1, bc2)
-        if inplace:
-            nm, nv = m.copy_(nm), v.copy_(nv)
-        return delta, nm, nv
-    return fused_adam_cuda(vals, scales, m, v, lr, b1, b2, eps, bc1, bc2,
-                           inplace)
+        return plain_fused_adam(vals, scales, m, v, lr, b1, b2, eps, bc1,
+                                bc2)
+    return fused_adam_cuda(vals, scales, m, v, lr, b1, b2, eps, bc1, bc2)

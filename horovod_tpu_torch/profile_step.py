@@ -3,11 +3,12 @@
     python -m horovod_tpu_torch.profile_step [--steps N] [--out FILE]
         [--optimizer adamw|ef_adamw|fused_adam|fused_sgd_momentum|fused_sgd]
 
-Runs ``entry()``'s model through ``make_train_step`` with the optimizer
-(AdamW by default; the others are chip_smoke.py's int8 error-feedback
-paths: ``ef_adamw`` is ``DistributedOptimizer(adamw, compression=
-ErrorFeedback(Compression.int8))``, the ``fused_*`` ones the fused int8
-optimizers at chip_smoke.py's learning rates): three warm-up steps, N steps timed on the host clock, then N steps under
+Runs ``entry()``'s model through ``make_train_step`` with one of
+``OPTIMIZERS`` (AdamW by default; the others are the int8 error-feedback
+paths chip_smoke.py drives: ``ef_adamw`` is ``DistributedOptimizer(adamw,
+compression=ErrorFeedback(Compression.int8))``, the ``fused_*`` ones the
+fused int8 optimizers): three warm-up steps, N steps timed on the host
+clock, then N steps under
 ``torch.profiler`` (CPU and CUDA activity). Prints one JSON object: the
 wall time per step without and with the profiler, the device time
 per step summed over the kernels (one stream, so the kernels do not
@@ -25,6 +26,10 @@ import time
 
 import torch
 
+from horovod_tpu_torch import (DistributedOptimizer, ErrorFeedback,
+                               fused_adam, fused_sgd)
+from horovod_tpu_torch.compression import Compression
+from horovod_tpu_torch.models import adamw, init_opt_state, make_train_step
 
 _QUANTIZE_KERNELS = ("quantize_kernel", "fused_sgd0_kernel",
                      "fused_sgd_kernel", "fused_adam_kernel")
@@ -46,35 +51,38 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _optimizers():
-    from horovod_tpu_torch import (DistributedOptimizer, ErrorFeedback,
-                                   fused_adam, fused_sgd)
-    from horovod_tpu_torch.compression import Compression
-    from horovod_tpu_torch.models import adamw
-    ef8 = ErrorFeedback(Compression.int8)
-    return {
-        "adamw": adamw,
-        "ef_adamw": lambda ps: DistributedOptimizer(adamw(ps),
-                                                    compression=ef8),
-        "fused_adam": lambda ps: DistributedOptimizer(fused_adam(1e-3), ps,
-                                                      compression=ef8),
-        "fused_sgd_momentum": lambda ps: DistributedOptimizer(
-            fused_sgd(1.0, momentum=0.9), ps, compression=ef8),
-        "fused_sgd": lambda ps: DistributedOptimizer(fused_sgd(1.0), ps,
-                                                     compression=ef8),
-    }
+ADAM_LR = 1e-3
+# SGD's learning rate for the fused_sgd paths: at 1.0 the flagship's loss
+# falls at every one of 5 steps on one batch, with momentum 0.9 and without
+# (0.3 and 0.5 bounce without momentum)
+SGD_LR = 1.0
+SGD_MOMENTUM = 0.9
+_EF8 = ErrorFeedback(Compression.int8)
 
-
-OPTIMIZERS = ("adamw", "ef_adamw", "fused_adam", "fused_sgd_momentum",
-              "fused_sgd")
+# name: (the optimizer factory ``init_opt_state`` takes, the quantize
+# kernels a step launches once for each parameter)
+OPTIMIZERS = {
+    "adamw": (adamw, ()),
+    "ef_adamw": (lambda ps: DistributedOptimizer(adamw(ps),
+                                                 compression=_EF8),
+                 ("quantize", "dequantize")),
+    "fused_adam": (lambda ps: DistributedOptimizer(fused_adam(ADAM_LR), ps,
+                                                   compression=_EF8),
+                   ("quantize_ef", "fused_adam")),
+    "fused_sgd_momentum": (lambda ps: DistributedOptimizer(
+        fused_sgd(SGD_LR, momentum=SGD_MOMENTUM), ps, compression=_EF8),
+        ("quantize_ef", "fused_sgd")),
+    "fused_sgd": (lambda ps: DistributedOptimizer(fused_sgd(SGD_LR), ps,
+                                                  compression=_EF8),
+                  ("quantize_ef", "fused_sgd0")),
+}
 
 
 def profile(steps: int, optimizer: str = "adamw") -> dict:
     from horovod_tpu_torch.entry import entry
-    from horovod_tpu_torch.models import init_opt_state, make_train_step
 
     _, (model, tokens, targets) = entry()
-    opt = init_opt_state(_optimizers()[optimizer], model)
+    opt = init_opt_state(OPTIMIZERS[optimizer][0], model)
     step = make_train_step(model.cfg)
     for _ in range(3):
         step(model, opt, tokens, targets)
@@ -136,7 +144,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
+    ap.add_argument("--optimizer", default="adamw", choices=list(OPTIMIZERS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")

@@ -24,9 +24,10 @@ data-parallel slice.
 State per parameter, mirroring ``FusedOptState``: ``count`` and, in the
 codec's blocked ``[n_blocks, block]`` fp32 layout, ``mom`` (SGD momentum
 or Adam's first moment), ``vel`` (Adam's second moment) and ``residual``
-(the EF carry); the kernels update them in place. Hyperparameters come
-from the parameter group (``lr``, ``momentum``, ``betas``, ``eps``), so a
-learning-rate scheduler works as with any torch optimizer.
+(the EF carry); each step replaces them with the kernels' outputs.
+Hyperparameters come from the parameter group (``lr``, ``momentum``,
+``betas``, ``eps``), so a learning-rate scheduler works as with any torch
+optimizer.
 """
 
 from __future__ import annotations
@@ -172,20 +173,21 @@ class FusedOptimizer(torch.optim.Optimizer):
         t = state["count"] + 1
         blocks = _to_blocks(grad, self.block)
         if self.ef:
-            vals, scales, _ = block_quantize_ef(
-                blocks + state["residual"], out_residual=state["residual"])
+            vals, scales, state["residual"] = block_quantize_ef(
+                blocks + state["residual"])
         else:
             vals, scales = block_quantize(blocks)
         if self.spec.kind == "sgd":
-            delta, _ = fused_sgd_apply(vals, scales, state.get("mom"),
-                                       group["lr"], group["momentum"],
-                                       inplace=True)
+            delta, mom = fused_sgd_apply(vals, scales, state.get("mom"),
+                                         group["lr"], group["momentum"])
+            if mom is not None:
+                state["mom"] = mom
         else:
             b1, b2 = group["betas"]
             bc1, bc2 = _bias_corrections(b1, b2, t)
-            delta, _, _ = fused_adam_apply(
+            delta, state["mom"], state["vel"] = fused_adam_apply(
                 vals, scales, state["mom"], state["vel"], group["lr"], b1, b2,
-                group["eps"], bc1, bc2, inplace=True)
+                group["eps"], bc1, bc2)
         state["count"] = t
         return delta
 

@@ -134,10 +134,9 @@ def test_quantizers_compute_nowhere_but_cpu_or_kernel(fn, dtype):
     wrapper = getattr(quantize, fn)
     with pytest.raises(ValueError, match="one CUDA device"):
         wrapper(torch.empty(4, 256, device="meta", dtype=dtype))
-    if fn == "block_quantize_ef":
-        with pytest.raises(ValueError, match="one CUDA device"):
-            wrapper(torch.zeros(4, 256, dtype=dtype),
-                    torch.empty(4, 256, device="meta"))
+    vals, scales = quantize.block_quantize(torch.ones(4, 256, dtype=dtype))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        quantize.block_dequantize(vals, scales.to("meta"))
 
 
 @pytest.mark.cuda

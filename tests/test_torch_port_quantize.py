@@ -127,24 +127,25 @@ def test_fused_adam_matches_pallas(shape, zero_row, interpret):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6)
 
 
-def test_inplace_updates_write_the_given_state():
+def test_wrappers_leave_their_operands_untouched():
+    """As the JAX functions: new tensors out, the operands as they were."""
     v, s = _codes((9, 128), 9)
     vt, st = torch.from_numpy(v), torch.from_numpy(s)
     mom = torch.from_numpy(_blocks((9, 128), 10))
-    d_ref, nm_ref = tq.fused_sgd_apply(vt, st, mom.clone(), 0.1, 0.9)
-    d, nm = tq.fused_sgd_apply(vt, st, mom, 0.1, 0.9, inplace=True)
-    assert nm is mom and torch.equal(mom, nm_ref) and torch.equal(d, d_ref)
-    m, vel = torch.zeros(9, 128), torch.zeros(9, 128)
-    hp = (1e-3, 0.9, 0.999, 1e-8, 0.1, 0.001)
-    ref = tq.fused_adam_apply(vt, st, m.clone(), vel.clone(), *hp)
-    got = tq.fused_adam_apply(vt, st, m, vel, *hp, inplace=True)
-    assert got[1] is m and got[2] is vel
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+    m = torch.from_numpy(_blocks((9, 128), 13)) * 0.1
+    vel = torch.from_numpy(np.abs(_blocks((9, 128), 14))) * 0.01
     x = torch.from_numpy(_blocks((9, 128), 11))
-    res = torch.empty(9, 128)
-    _, _, out = tq.block_quantize_ef(x, out_residual=res)
-    assert out is res and torch.equal(res, tq.plain_quantize_ef(x)[2])
+    operands = [vt, st, mom, m, vel, x]
+    before = [t.clone() for t in operands]
+    _, nm = tq.fused_sgd_apply(vt, st, mom, 0.1, 0.9)
+    got = tq.fused_adam_apply(vt, st, m, vel, 1e-3, 0.9, 0.999, 1e-8, 0.1,
+                              0.001)
+    _, _, res = tq.block_quantize_ef(x)
+    for t, b in zip(operands, before):
+        assert torch.equal(t, b)
+    assert not torch.equal(nm, mom)
+    assert not torch.equal(got[1], m) and not torch.equal(got[2], vel)
+    assert torch.equal(res, tq.plain_quantize_ef(x)[2])
 
 
 def test_rounding_is_half_to_even():
@@ -176,9 +177,11 @@ def test_cpu_calls_never_count_launches():
                                 torch.ones(3, 1)),
     lambda: tq.fused_sgd_apply(torch.zeros(4, 8, dtype=torch.int8),
                                torch.ones(4, 1), torch.zeros(4, 9), 0.1, 0.9),
-    lambda: tq.block_quantize_ef(torch.zeros(4, 8),
-                                 out_residual=torch.zeros(4, 9)),
-], ids=["1d", "block0", "scales", "mom", "residual"])
+    lambda: tq.fused_adam_apply(torch.zeros(4, 8, dtype=torch.int8),
+                                torch.ones(4, 1), torch.zeros(4, 8),
+                                torch.zeros(4, 9), 1e-3, 0.9, 0.999, 1e-8,
+                                0.1, 0.001),
+], ids=["1d", "block0", "scales", "mom", "vel"])
 def test_shape_errors(call):
     with pytest.raises(ValueError):
         call()
