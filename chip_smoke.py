@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes the flagship's
-training step gives it, and times both beside a PyTorch library call and
-the card's bound. Then it drives the main path through the entry points a
-user calls: the flagship transformer's forward at full width from
-``entry()`` (held against the same model in fp32 on the CPU), and five
-AdamW steps of ``make_train_step`` on one batch, whose loss must fall.
+Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` (printing
+ptxas's registers and spills of each attention kernel), holds each kernel
+against its plain PyTorch version at the shapes the flagship's training
+step gives it, and times both beside a PyTorch library call and the
+card's bound. Attention is also held to its plain version at S 4096 and
+timed beside SDPA at two long causal shapes (``LONG_FLASH``), in TFLOP/s.
+Then it drives the main path through the entry points a user calls: the
+flagship transformer's forward at full width from ``entry()`` (held
+against the same model in fp32 on the CPU), and five AdamW steps of
+``make_train_step`` on one batch, whose loss must fall.
 Kernel launch counters are zeroed just before the main path and read just
 after: every kernel must have run there, four attention launches (one per
 layer) and one cross-entropy launch per forward.
@@ -56,6 +59,8 @@ QUANT_TOL = 1e-6
 # measured on an H100, so a wrong carry or dequantize on a leaf shows
 EF_LOSS_TOL = 1e-3
 ADAM_PATHS = ("ef_adamw", "fused_adam")   # held to plain AdamW's loss
+# long causal bf16 shapes timed beside SDPA: 68.7 GFLOP and 67.1 MB each
+LONG_FLASH = ((4, 4096, 8, 64), (2, 4096, 8, 128))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -110,6 +115,7 @@ def phase_flash(torch, attention, dev):
         (8, 200, 8, 64, torch.float32, False, 1e-4),
         (4, 256, 8, 128, torch.bfloat16, True, 2e-2),  # D = 128
         (4, 200, 8, 128, torch.float32, True, 1e-4),
+        (2, 4096, 8, 128, torch.bfloat16, True, 2e-2),  # a long sequence
     ]
     main_err = None
     for B, S, H, D, dt, causal, tol in cases:
@@ -140,17 +146,41 @@ def phase_flash(torch, attention, dev):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    n_bytes = 4 * B * S * H * D * 2 + B * H * S * 4   # q, k, v in; o, lse out
-    pairs = S * (S + 1) // 2                          # causal (q, k) pairs
-    n_ops = B * H * pairs * D * 4                     # q.k and p.v, 2 each
+    n_bytes, n_ops = attention_cost(B, S, H, D)
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
     say("flash_attention_fwd", timed="8x256x8x64 bf16 causal", ms=ms,
         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    for B, S, H, D in LONG_FLASH:
+        timed_long_flash(torch, attention, g, dev, B, S, H, D)
     return dict(name="flash_attention_fwd", route="cuda",
                 source="horovod_tpu_torch/csrc/flash_attn_fwd.cu",
                 replaces="horovod_tpu/ops/pallas_attention.py:41",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib)
+
+
+def attention_cost(B, S, H, D):
+    """Bytes (q, k, v in; o and the fp32 lse out) and operations (q.k and
+    p.v, 2 each a multiply-add) of causal bf16 attention at [B, S, H, D]."""
+    n_bytes = 4 * B * S * H * D * 2 + B * H * S * 4
+    return n_bytes, B * H * (S * (S + 1) // 2) * D * 4
+
+
+def timed_long_flash(torch, attention, g, dev, B, S, H, D):
+    """flash_attn_fwd beside SDPA at a long causal bf16 shape, in TFLOP/s.
+    The inputs (67 MB) do not fit in the 50 MB L2."""
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = 1.0 / D ** 0.5
+    ms = time_ms(lambda: attention.flash_attn_fwd_cuda(q, k, v, True, scale))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    n_bytes, n_ops = attention_cost(B, S, H, D)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+    say("flash_attention_fwd", timed=f"{B}x{S}x{H}x{D} bf16 causal", ms=ms,
+        library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        tflops=n_ops / ms * 1e-9, library_tflops=n_ops / lib * 1e-9)
 
 
 def phase_xent(torch, xent, dev):
@@ -453,6 +483,8 @@ def main() -> int:
     _build.build_all()
     say("build", kernels=",".join(_build.ENTRIES),
         seconds=time.perf_counter() - t0)
+    for kern, r in _build.ptxas_report("flash_attn_fwd").items():
+        say("ptxas", kernel=kern, **r)
 
     # -- each kernel against its plain version, and timed
     kernels = [phase_flash(torch, attention, dev),

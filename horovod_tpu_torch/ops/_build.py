@@ -17,6 +17,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "horovod_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _I, _LL, _P, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
 # each library (csrc/<name>.cu) and the argument types of its C entries;
@@ -92,6 +93,8 @@ def _finish(proc: subprocess.Popen, name: str, out: str) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    with open(out + ".ptxas.txt", "w") as f:
+        f.write(log)
     os.replace(f"{out}.{os.getpid()}.tmp", out)
 
 
@@ -132,6 +135,34 @@ def library(name: str) -> ctypes.CDLL:
             lib.error_string = err
             _libs[name] = lib
         return _libs[name]
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel in ``csrc/<name>.cu``, from
+    ptxas's ``-v`` report of its last build: ``{kernel: {"registers",
+    "spill_stores", "spill_loads"}}``, keyed by the mangled name."""
+    path = _target(name) + ".ptxas.txt"
+    if not os.path.exists(path):
+        return {}
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = out.setdefault(m.group(1), {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_stores"] = int(m.group(1))
+                cur["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
 
 
 def check(lib: ctypes.CDLL, entry: str, err: int) -> None:

@@ -62,8 +62,10 @@ def flash_attn_fwd_cuda(q, k, v, causal: bool, scale: float
 
     Replaces ``_flash_kernel`` (``horovod_tpu/ops/pallas_attention.py``).
     At the flagship's shape the card's bound is its memory (about 8.4 MB,
-    2.5 us); the kernel reads q/k/v once per q tile through their strides
-    and runs the bf16 products on the tensor cores (the source says more).
+    2.5 us), at long sequences its tensor cores. The bf16 kernel streams
+    k/v through a TMA ring over their strides and keeps both products and
+    the softmax in registers (``wgmma``); fp32 takes scalar FMAs (the
+    source says more).
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]

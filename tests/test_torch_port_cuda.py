@@ -29,34 +29,56 @@ def _rand(dev, *shape, dtype=torch.float32, seed=0):
     return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("S,D,dtype,causal,tol", [
-    (256, 64, torch.float32, True, 1e-4),
-    (130, 64, torch.float32, False, 1e-4),
-    (77, 128, torch.float32, True, 1e-4),
-    (256, 128, torch.bfloat16, False, 2e-2),
-    (1, 64, torch.bfloat16, True, 2e-2),
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize("Sq,Sk,D,dtype,causal,scale,tol", [
+    (256, 256, 64, torch.float32, True, None, 1e-4),
+    (130, 130, 64, torch.float32, False, None, 1e-4),
+    (77, 77, 128, torch.float32, True, None, 1e-4),
+    (256, 256, 128, BF, False, None, 2e-2),
+    (1, 1, 64, BF, True, None, 2e-2),
+    # the bf16 kernel's edges: a ring that wraps many times (S 4096), a q or
+    # key tile cut short, Sq != Sk with and without the mask, and a negative
+    # scale (the kernel's second softmax form)
+    (4096, 4096, 64, BF, True, None, 2e-2),
+    (4096, 4096, 128, BF, True, None, 2e-2),
+    (65, 65, 128, BF, True, None, 2e-2),
+    (200, 200, 64, BF, True, None, 2e-2),
+    (200, 200, 128, BF, False, None, 2e-2),
+    (64, 200, 64, BF, True, None, 2e-2),
+    (64, 200, 128, BF, False, None, 2e-2),
+    (200, 70, 64, BF, True, None, 2e-2),
+    (130, 77, 128, BF, False, None, 2e-2),
+    (130, 130, 64, BF, True, -0.125, 2e-2),
 ])
-def test_flash_kernel_matches_plain(dev, S, D, dtype, causal, tol):
-    q, k, v = (_rand(dev, 2, S, 3, D, dtype=dtype, seed=i) for i in range(3))
+def test_flash_kernel_matches_plain(dev, Sq, Sk, D, dtype, causal, scale, tol):
+    q = _rand(dev, 2, Sq, 3, D, dtype=dtype, seed=0)
+    k, v = (_rand(dev, 2, Sk, 3, D, dtype=dtype, seed=i) for i in (1, 2))
     before = attention.flash_attn_fwd_cuda.launches
-    o, lse = attention.flash_attention_with_lse(q, k, v, causal=causal)
+    o, lse = attention.flash_attention_with_lse(q, k, v, causal=causal,
+                                                scale=scale)
     assert attention.flash_attn_fwd_cuda.launches == before + 1
-    o_ref, lse_ref = attention.plain_attention_with_lse(q, k, v, causal)
+    o_ref, lse_ref = attention.plain_attention_with_lse(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    assert o.dtype == dtype and lse.shape == (2 * 3, S)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.shape == (2 * 3, Sq)
     assert float((o.float() - o_ref.float()).abs().max()) <= tol
     assert float((lse - lse_ref).abs().max()) <= tol
 
 
-def test_flash_kernel_reads_strided_inputs(dev):
+@pytest.mark.parametrize("S,D,dtype,tol", [(96, 64, torch.float32, 1e-4),
+                                           (200, 64, BF, 2e-2),
+                                           (200, 128, BF, 2e-2)])
+def test_flash_kernel_reads_strided_inputs(dev, S, D, dtype, tol):
     """q/k/v as views of a fused [B, S, 3, H, D] projection: no copy."""
-    qkv = _rand(dev, 2, 96, 3, 4, 64)
+    qkv = _rand(dev, 2, S, 3, 4, D, dtype=dtype)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
     o, lse = attention.flash_attention_with_lse(q, k, v, causal=True)
     o_ref, lse_ref = attention.plain_attention_with_lse(q, k, v, True)
-    assert float((o - o_ref).abs().max()) <= 1e-4
-    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    assert float((o.float() - o_ref.float()).abs().max()) <= tol
+    assert float((lse - lse_ref).abs().max()) <= tol
 
 
 def test_flash_rect_keys(dev):
