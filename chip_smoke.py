@@ -31,6 +31,33 @@ counters are zeroed before it: its two kernels must run once per parameter
 a step and the other quantize kernels never, its loss must fall, and the
 loss of the two Adam paths must end within EF_LOSS_TOL of plain AdamW's.
 
+The data-parallel slice adds four phases over ``torch.distributed``, each
+from the same seed-0 weights and 8-row batch:
+
+* ``[dp_nccl]``: an NCCL process group of world 1 on the card (the axis
+  of size 1 still runs its collectives), ``make_overlap_train_step`` with
+  ``DP_MICRO`` microbatches and the default 64 MiB buckets (two for the
+  flagship), five AdamW steps. The loss falls, step 1's loss equals the
+  ``[train]`` phase's first loss within ``DP_LOSS_TOL``, step 1's synced
+  gradient equals the one-process full-batch gradient
+  (``models.make_grad_fn``) within ``DP_GRAD_TOL`` per leaf, and the
+  kernels launch ``n_layers x DP_MICRO x 5`` and ``DP_MICRO x 5`` times.
+* ``[dp_nccl_int8]``: the same with ``compression=Compression.int8``:
+  ``quantize`` and ``dequantize`` launch ``buckets x DP_MICRO x 5`` times
+  each (the gather at n = 1 is one slice), no other quantize kernel does,
+  and the 5th loss is within ``DP_INT8_TOL`` of ``[dp_nccl]``'s.
+* ``[dp_nccl_fused_adam]``: ``DistributedOptimizer(fused_adam(1e-3),
+  compression=ErrorFeedback(Compression.int8), axis=mesh.axis("dp"))``,
+  the axis regime at world 1: ``quantize_ef`` and ``dequantize`` launch
+  once a parameter a step and ``fused_adam`` never; the 5th loss within
+  EF_LOSS_TOL of AdamW's.
+* ``[dp_gloo_2rank]``: two ranks of this script (``--gloo-rank``), two
+  one-card "hosts" on ``cuda:0`` over gloo, 4 rows each, with a timeout:
+  three AdamW steps of ``make_train_step(cfg, mesh)``, then three of the
+  overlap engine with int8. Step 1's synced gradient equals the
+  full-batch one, both ranks hold bit-identical parameters after every
+  step, and the int8 launch counts are those of n = 2.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -40,11 +67,15 @@ power limit, a JSON line with each kernel's numbers, and
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
@@ -61,6 +92,17 @@ EF_LOSS_TOL = 1e-3
 ADAM_PATHS = ("ef_adamw", "fused_adam")   # held to plain AdamW's loss
 # long causal bf16 shapes timed beside SDPA: 68.7 GFLOP and 67.1 MB each
 LONG_FLASH = ((4, 4096, 8, 64), (2, 4096, 8, 128))
+# data-parallel step 1 against the one-process step on the same batch, in
+# bf16 compute: the loss within one bf16 rounding (2^-8) relative;
+DP_LOSS_TOL = 2.0 ** -8
+# each synced gradient within 2e-2 relative (L2, per parameter) of the
+# full-batch one: every weight gradient is a bf16 product rounded to 8 bits
+# (3.9e-3 relative) over 4 rows instead of 8, then averaged, so the two
+# differ by a few roundings, and more where a gradient sums to near zero
+DP_GRAD_TOL = 2e-2
+DP_INT8_TOL = 5e-2        # tests/test_overlap.py:186
+GLOO_STEPS = 3
+GLOO_TIMEOUT_S = 420
 
 
 def check(ok: bool, msg: str) -> None:
@@ -406,7 +448,7 @@ def phase_optimizer_kernels(torch, quantize, dev):
 
 
 def drive_int8_path(torch, label, factory, pair, cfg, init_sd, batch,
-                    counters, quant):
+                    counters, quant, phase="int8_"):
     """Five train steps of the flagship from the seed-0 weights through
     ``make_train_step`` with the optimizer ``factory`` builds; the counters
     are zeroed just before and read just after. Returns (losses, launches
@@ -431,7 +473,7 @@ def drive_int8_path(torch, label, factory, pair, cfg, init_sd, batch,
     timed = sorted(step_s[1:])
     med = timed[len(timed) // 2]
     n_leaves = len(list(model.parameters()))
-    say(f"int8_{label}", steps=TRAIN_STEPS,
+    say(f"{phase}{label}", steps=TRAIN_STEPS,
         losses=",".join(f"{x:.6f}" for x in losses),
         step_ms=",".join(f"{1e3 * s:.3f}" for s in step_s),
         median_step_ms_after_warmup=1e3 * med,
@@ -448,6 +490,332 @@ def drive_int8_path(torch, label, factory, pair, cfg, init_sd, batch,
           f"{label}: flash/xent launched {(flash, xent)}")
     del model, opt
     return losses, got, 1e3 * med
+
+
+def rel_l2(a, b) -> float:
+    """||a − b|| / ||b|| in fp64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def grad_errors(grads, ref) -> dict:
+    """Per parameter: relative L2 distance and max abs error."""
+    return {k: (rel_l2(grads[k], ref[k]), max_err(grads[k], ref[k]))
+            for k in ref}
+
+
+def params_digest(model) -> str:
+    """sha256 over every parameter's bytes, in state_dict order."""
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def drive_dp(torch, hvd, label, mesh, cfg, init_sd, batch, counters,
+             quant, compression=None):
+    """Five AdamW steps of the overlap engine from the seed-0 weights, the
+    counters zeroed just before and read just after. Returns (losses, step
+    1's synced gradients, launches by kernel name, median step ms)."""
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          lm_loss)
+    from horovod_tpu_torch.profile_step import DP_MICRO
+    model = Transformer(cfg)
+    model.load_state_dict(init_sd)
+    opt = init_opt_state(adamw, model)
+    step = hvd.make_overlap_train_step(lm_loss, mesh, "dp", n_micro=DP_MICRO,
+                                       compression=compression)
+    local = hvd.shard_batch(*batch, mesh)
+    for c in (*counters, *quant.values()):
+        c.launches = 0
+    losses, step_s, grads1 = [], [], None
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = step(model, opt, local)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            grads1 = {k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()}
+    step.flush()
+    launches = {"flash_attention_fwd": counters[0].launches,
+                "xent_fwd": counters[1].launches,
+                **{k: fn.launches for k, fn in quant.items()}}
+    med = sorted(step_s[1:])[(len(step_s) - 1) // 2]
+    say(label, steps=TRAIN_STEPS, n_micro=DP_MICRO,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        step_ms=",".join(f"{1e3 * t:.3f}" for t in step_s),
+        median_step_ms_after_warmup=1e3 * med,
+        tokens_per_s=batch[0].numel() / med, skipped=step.skipped,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    check(all(map(math.isfinite, losses)), f"{label}: non-finite loss "
+                                           f"{losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(step.skipped == 0, f"{label}: the guard skipped a step")
+    del model, opt
+    return losses, grads1, launches, 1e3 * med
+
+
+def phase_dp_nccl(torch, cfg, init_sd, batch, train_losses, counters,
+                  quant):
+    """[dp_nccl], [dp_nccl_int8] and [dp_nccl_fused_adam] over an NCCL
+    process group of world 1. Returns launches by phase and kernel."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import (DistributedOptimizer, ErrorFeedback,
+                                   fused_adam)
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.models import Transformer, make_grad_fn
+    from horovod_tpu_torch.profile_step import ADAM_LR, DP_MICRO
+    from horovod_tpu_torch.train.buckets import plan_buckets
+    from horovod_tpu_torch.train.overlap import jax_ordered_parameters
+
+    hvd.init()
+    check(hvd.size() == 1 and dist.get_backend() == "nccl",
+          f"expected an NCCL world of 1, got {hvd.size()} "
+          f"{dist.get_backend()}")
+    mesh = hvd.build_mesh(dp=1)
+    ref_model = Transformer(cfg)
+    ref_model.load_state_dict(init_sd)
+    plan = plan_buckets(jax_ordered_parameters(ref_model)[1])
+    say("dp_nccl", world=hvd.size(), backend=dist.get_backend(),
+        buckets=plan.num_buckets,
+        bucket_bytes=",".join(str(b.nbytes) for b in plan.buckets))
+    _, _, ref_grads = make_grad_fn(cfg)(ref_model, *batch)
+    del ref_model
+    out = {}
+
+    losses, grads1, out["dp_nccl"], _ = drive_dp(
+        torch, hvd, "dp_nccl", mesh, cfg, init_sd, batch, counters, quant)
+    errs = grad_errors(grads1, ref_grads)
+    worst = max(errs, key=lambda k: errs[k][0])
+    rel = abs(losses[0] - train_losses[0]) / abs(train_losses[0])
+    say("dp_nccl", step1_loss=losses[0], train_step1_loss=train_losses[0],
+        rel=rel, tol_rel=DP_LOSS_TOL, worst_grad=worst,
+        grad_rel_l2=errs[worst][0], grad_max_abs_err=errs[worst][1],
+        tol_grad_rel_l2=DP_GRAD_TOL)
+    check(rel <= DP_LOSS_TOL, f"dp_nccl: step 1 loss {losses[0]} is {rel} "
+                              f"off the one-process {train_losses[0]}")
+    check(errs[worst][0] <= DP_GRAD_TOL,
+          f"dp_nccl: synced gradient of {worst} is {errs[worst][0]} off "
+          f"the full-batch gradient")
+    n_layers = cfg.n_layers
+    want = {"flash_attention_fwd": n_layers * DP_MICRO * TRAIN_STEPS,
+            "xent_fwd": DP_MICRO * TRAIN_STEPS, **{k: 0 for k in quant}}
+    check(out["dp_nccl"] == want, f"dp_nccl: launches {out['dp_nccl']}, "
+                                  f"expected {want}")
+    base5 = losses[-1]
+
+    losses, grads1, out["dp_nccl_int8"], _ = drive_dp(
+        torch, hvd, "dp_nccl_int8", mesh, cfg, init_sd, batch, counters,
+        quant, compression=Compression.int8)
+    errs = grad_errors(grads1, ref_grads)
+    worst = max(errs, key=lambda k: errs[k][0])
+    rel = abs(losses[-1] - base5) / abs(base5)
+    say("dp_nccl_int8", loss5=losses[-1], dp_nccl_loss5=base5, rel=rel,
+        tol_rel=DP_INT8_TOL, worst_grad=worst, grad_rel_l2=errs[worst][0])
+    check(rel <= DP_INT8_TOL, f"dp_nccl_int8: 5th loss {losses[-1]} is "
+                              f"{rel} off dp_nccl's {base5}")
+    per = plan.num_buckets * DP_MICRO * TRAIN_STEPS
+    want = {"flash_attention_fwd": n_layers * DP_MICRO * TRAIN_STEPS,
+            "xent_fwd": DP_MICRO * TRAIN_STEPS,
+            **{k: (per if k in ("quantize", "dequantize") else 0)
+               for k in quant}}
+    check(out["dp_nccl_int8"] == want,
+          f"dp_nccl_int8: launches {out['dp_nccl_int8']}, expected {want}")
+
+    axis = mesh.axis("dp")
+    path_losses, got, _ = drive_int8_path(
+        torch, "fused_adam", lambda ps: DistributedOptimizer(
+            fused_adam(ADAM_LR), ps,
+            compression=ErrorFeedback(Compression.int8), axis=axis),
+        ("quantize_ef", "dequantize"), cfg, init_sd, batch, counters, quant,
+        phase="dp_nccl_")
+    out["dp_nccl_fused_adam"] = {"flash_attention_fwd": counters[0].launches,
+                                 "xent_fwd": counters[1].launches, **got}
+    rel = abs(path_losses[-1] - train_losses[-1]) / abs(train_losses[-1])
+    say("dp_nccl_fused_adam", loss5=path_losses[-1],
+        adamw_loss5=train_losses[-1], rel=rel, tol_rel=EF_LOSS_TOL)
+    check(rel <= EF_LOSS_TOL, f"dp_nccl_fused_adam: 5th loss "
+                              f"{path_losses[-1]} is {rel} off AdamW's")
+    hvd.shutdown()
+    return out, ref_grads, plan.num_buckets
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_gloo_ranks(torch, out_dir: str):
+    """Start the two ranks of [dp_gloo_2rank] with a timeout, kill their
+    process groups on the way out, and return each rank's results and step
+    1's synced gradients from the files they wrote in ``out_dir``."""
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(2):
+        env = dict(os.environ, HVD_TPU_RANK=str(r), HVD_TPU_SIZE="2",
+                   HVD_TPU_LOCAL_RANK="0", HVD_TPU_LOCAL_SIZE="1",
+                   HVD_TPU_CROSS_RANK=str(r), HVD_TPU_CROSS_SIZE="2",
+                   HOROVOD_TPU_OPERATIONS="GLOO",
+                   HVD_TPU_RENDEZVOUS_ADDR="127.0.0.1",
+                   HVD_TPU_RENDEZVOUS_PORT=str(port),
+                   HVD_TPU_GLOO_TIMEOUT_SECONDS=str(GLOO_TIMEOUT_S))
+        log = open(os.path.join(out_dir, f"rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-rank",
+             out_dir], env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, GLOO_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=60)
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"dp_gloo_2rank: rank {r} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    grads = [torch.load(os.path.join(out_dir, f"grads{r}.pt"))
+             for r in range(2)]
+    return res, grads
+
+
+def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
+    """[dp_gloo_2rank]: two ranks of this script over gloo on cuda:0, with
+    a timeout; each writes its results to a file. Returns rank 0's
+    launches."""
+    from horovod_tpu_torch.profile_step import DP_MICRO
+    with tempfile.TemporaryDirectory(prefix="dp_gloo_") as out_dir:
+        res, grads = _run_gloo_ranks(torch, out_dir)
+    ref = {k: v.cpu() for k, v in ref_grads.items()}
+    errs = grad_errors(grads[0], ref)
+    worst = max(errs, key=lambda k: errs[k][0])
+    same_grads = all(torch.equal(grads[0][k], grads[1][k]) for k in ref)
+    for key in ("train", "overlap_int8"):
+        say("dp_gloo_2rank", path=key, seconds=res[0]["seconds"],
+            losses=",".join(f"{x:.6f}" for x in res[0][f"{key}_losses"]),
+            step_ms=",".join(f"{x:.3f}" for x in res[0][f"{key}_step_ms"]),
+            same_params_every_step=res[0][f"{key}_digests"]
+            == res[1][f"{key}_digests"],
+            launches=",".join(f"{k}:{v}" for k, v in
+                              res[0][f"{key}_launches"].items()))
+        for rr in res:
+            ls = rr[f"{key}_losses"]
+            check(all(map(math.isfinite, ls)) and ls[-1] < ls[0],
+                  f"dp_gloo_2rank {key}: losses {ls}")
+        check(res[0][f"{key}_digests"] == res[1][f"{key}_digests"],
+              f"dp_gloo_2rank {key}: the ranks' parameters differ")
+    say("dp_gloo_2rank", worst_grad=worst, grad_rel_l2=errs[worst][0],
+        grad_max_abs_err=errs[worst][1], tol_grad_rel_l2=DP_GRAD_TOL,
+        ranks_same_grads=same_grads)
+    check(errs[worst][0] <= DP_GRAD_TOL,
+          f"dp_gloo_2rank: synced gradient of {worst} is {errs[worst][0]} "
+          f"off the full-batch gradient")
+    check(same_grads, "dp_gloo_2rank: the ranks' synced gradients differ")
+    per = n_buckets * DP_MICRO * GLOO_STEPS
+    want_train = {"flash_attention_fwd": n_layers * GLOO_STEPS,
+                  "xent_fwd": GLOO_STEPS}
+    want_int8 = {"flash_attention_fwd": n_layers * DP_MICRO * GLOO_STEPS,
+                 "xent_fwd": DP_MICRO * GLOO_STEPS, "quantize": per,
+                 "quantize_ef": 0, "dequantize": 2 * per, "fused_sgd0": 0,
+                 "fused_sgd": 0, "fused_adam": 0}
+    for rr in res:
+        check(rr["train_launches"] == want_train,
+              f"dp_gloo_2rank train: launches {rr['train_launches']}, "
+              f"expected {want_train}")
+        check(rr["overlap_int8_launches"] == want_int8,
+              f"dp_gloo_2rank overlap_int8: launches "
+              f"{rr['overlap_int8_launches']}, expected {want_int8}")
+    return {"dp_gloo_2rank": {k: res[0]["train_launches"].get(k, 0)
+                              + res[0]["overlap_int8_launches"][k]
+                              for k in want_int8}}
+
+
+def gloo_rank_main(out_dir: str) -> int:
+    """One rank of [dp_gloo_2rank] (the launcher's identity in the
+    environment): make_train_step over dp=2, then the overlap engine with
+    int8, GLOO_STEPS AdamW steps each from the seed-0 weights, 4 rows a
+    rank; losses, parameter digests after every step and launch counts to
+    ``rank<r>.json``, step 1's synced gradients to ``grads<r>.pt``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.entry import entry
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          lm_loss, make_train_step)
+    from horovod_tpu_torch.ops import attention, quantize, xent
+    from horovod_tpu_torch.profile_step import DP_MICRO
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r = hvd.rank()
+    _, (model, tokens, targets) = entry()
+    init_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    mesh = hvd.build_mesh(dp=2)
+    local = hvd.shard_batch(tokens, targets, mesh)
+    counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
+                "xent_fwd": xent.xent_fwd_cuda}
+    quant = {fn.__name__[:-len("_cuda")]: fn for fn in quantize.LAUNCHERS}
+    res = {"rank": r}
+
+    def run(key, step_fn, with_quant):
+        for c in (*counters.values(), *quant.values()):
+            c.launches = 0
+        losses, ms, digests = [], [], []
+        for i in range(GLOO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step_fn()))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if key == "train" and i == 0:
+                torch.save({k: p.grad.detach().cpu()
+                            for k, p in model.named_parameters()},
+                           os.path.join(out_dir, f"grads{r}.pt"))
+            digests.append(params_digest(model))
+        launches = {k: c.launches for k, c in counters.items()}
+        if with_quant:
+            launches.update({k: c.launches for k, c in quant.items()})
+        res.update({f"{key}_losses": losses, f"{key}_step_ms": ms,
+                    f"{key}_digests": digests, f"{key}_launches": launches})
+
+    opt = init_opt_state(adamw, model)
+    step = make_train_step(model.cfg, mesh)
+    run("train", lambda: step(model, opt, *local)[2], False)
+
+    model = Transformer(model.cfg)
+    model.load_state_dict(init_sd)
+    opt = init_opt_state(adamw, model)
+    ostep = hvd.make_overlap_train_step(lm_loss, mesh, "dp", n_micro=DP_MICRO,
+                                        compression=Compression.int8)
+    run("overlap_int8", lambda: ostep(model, opt, local)[2], True)
+    ostep.flush()
+    res["skipped"] = ostep.skipped
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
 
 
 def main() -> int:
@@ -577,8 +945,22 @@ def main() -> int:
         k["launches"] = quant_launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} never ran on its path")
 
+    # -- data parallelism over torch.distributed, from the seed-0 weights
+    dp_launches, ref_grads, n_buckets = phase_dp_nccl(
+        torch, model.cfg, init_sd, (tokens, targets), losses, counters,
+        quant)
+    dp_launches.update(phase_dp_gloo(torch, ref_grads, n_buckets, n_layers))
+    for k in kernels:
+        k["dp_launches"] = {ph: got.get(k["name"], 0)
+                            for ph, got in dp_launches.items()}
+    for name in ("flash_attention_fwd", "xent_fwd", "quantize", "dequantize",
+                 "quantize_ef"):
+        check(any(got.get(name, 0) > 0 for got in dp_launches.values()),
+              f"{name} never ran on a data-parallel path")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "dp_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -588,4 +970,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(gloo_rank_main(sys.argv[2]))
     sys.exit(main())

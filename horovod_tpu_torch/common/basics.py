@@ -2,21 +2,34 @@
 ``shutdown`` / rank and size queries, and the CUDA device a process drives.
 
 Mirrors ``horovod_tpu/common/basics.py`` (``init``, ``shutdown``, ``rank``,
-``size``, ``local_rank``, ``local_size`` and ``_read_identity_from_env``).
-The launcher identity is read from the same environment variables:
-``HVD_TPU_<NAME>`` first, then ``HOROVOD_<NAME>``.
+``size``, ``local_rank``, ``local_size``, ``cross_rank``, ``cross_size``,
+``is_homogeneous`` and ``_read_identity_from_env``). The launcher identity
+is read from the same environment variables: ``HVD_TPU_<NAME>`` first,
+then ``HOROVOD_<NAME>``.
 
-On a GPU host a process drives one card, ``cuda:<local_rank>``. This port
-is single-process so far: a launched world of more than one process is
-refused until the data-parallel (NCCL) slice lands.
+On a GPU host a process drives one card, ``cuda:<local_rank>``. ``init``
+starts a ``torch.distributed`` process group over the launched world: NCCL
+when the process has a card, gloo otherwise (``HOROVOD_TPU_OPERATIONS=NCCL``
+or ``GLOO`` picks one, the counterpart of the JAX package's data-plane
+selector). A world of more than one process meets at rank 0's TCP store,
+the rendezvous the JAX launcher exports (``HOROVOD_GLOO_RENDEZVOUS_ADDR``/
+``_PORT``, or ``HVD_TPU_RENDEZVOUS_ADDR``/``_PORT``); a world of one uses an
+in-process store. The eager API (broadcasts, ``DistributedOptimizer``
+without an axis) keeps the JAX ``LocalBackend``'s scaled identity at size 1,
+while a mesh axis of size 1 still runs its collective on the group.
 """
 
 from __future__ import annotations
 
+import atexit
+import datetime
 import os
 import threading
 
 import torch
+import torch.distributed as dist
+
+from horovod_tpu_torch.common.config import get_config, reset_config
 
 
 class NotInitializedError(RuntimeError):
@@ -33,6 +46,9 @@ class _GlobalState:
         self.size = 1
         self.local_rank = 0
         self.local_size = 1
+        self.cross_rank = 0
+        self.cross_size = 1
+        self.backend = ""
 
 
 _state = _GlobalState()
@@ -49,32 +65,77 @@ def _read_identity_from_env() -> dict:
         size=geti("SIZE", 1),
         local_rank=geti("LOCAL_RANK", 0),
         local_size=geti("LOCAL_SIZE", 1),
+        cross_rank=geti("CROSS_RANK", 0),
+        cross_size=geti("CROSS_SIZE", 1),
     )
 
 
+def _backend_name(operations: str) -> str:
+    """``HOROVOD_TPU_OPERATIONS`` → the ``torch.distributed`` backend."""
+    if operations == "":
+        return "nccl" if torch.cuda.is_available() else "gloo"
+    if operations == "GLOO":
+        return "gloo"
+    if operations == "NCCL":
+        if not torch.cuda.is_available():
+            raise RuntimeError("HOROVOD_TPU_OPERATIONS=NCCL needs a CUDA "
+                               "device; this process has none")
+        return "nccl"
+    raise ValueError(f"HOROVOD_TPU_OPERATIONS={operations!r}: expected NCCL "
+                     f"or GLOO")
+
+
 def init() -> None:
-    """Read the launcher identity. A world of more than one process raises
-    ``NotImplementedError``: data parallelism over NCCL is the next slice
-    of the port."""
+    """Read the launcher identity and start the process group."""
     with _state.lock:
         if _state.initialized:
             return
+        reset_config()
+        cfg = get_config()
         ident = _read_identity_from_env()
-        if ident["size"] > 1:
-            raise NotImplementedError(
-                f"horovod_tpu_torch runs one process so far (launched world "
-                f"size {ident['size']}); multi-process training arrives with "
-                f"the data-parallel slice of the port")
-        _state.rank = ident["rank"]
-        _state.size = ident["size"]
+        size, rank = ident["size"], ident["rank"]
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} is outside a world of {size}")
+        backend = _backend_name(cfg.tpu_operations)
+        kw = dict(backend=backend, rank=rank, world_size=size,
+                  timeout=datetime.timedelta(seconds=cfg.gloo_timeout_seconds))
+        if backend == "nccl":
+            dev = torch.device("cuda", ident["local_rank"])
+            torch.cuda.set_device(dev)
+            kw["device_id"] = dev    # the communicator binds its card at init
+        if size == 1:
+            kw["store"] = dist.HashStore()
+        elif cfg.rendezvous_addr and cfg.rendezvous_port:
+            kw["init_method"] = (f"tcp://{cfg.rendezvous_addr}:"
+                                 f"{cfg.rendezvous_port}")
+        else:
+            raise ValueError(
+                f"a launched world of {size} processes needs the rendezvous: "
+                f"set HOROVOD_GLOO_RENDEZVOUS_ADDR and _PORT (or "
+                f"HVD_TPU_RENDEZVOUS_ADDR and _PORT) to rank 0's address")
+        dist.init_process_group(**kw)
+        _state.rank, _state.size = rank, size
         _state.local_rank = ident["local_rank"]
         _state.local_size = ident["local_size"]
+        _state.cross_rank = ident["cross_rank"]
+        _state.cross_size = ident["cross_size"]
+        _state.backend = backend
+        from horovod_tpu_torch.common.process_sets import global_process_set
+        global_process_set.ranks = list(range(size))
         _state.initialized = True
 
 
 def shutdown() -> None:
+    """Destroy the process group; ``init`` may be called again after."""
     with _state.lock:
+        if not _state.initialized:
+            return
         _state.initialized = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+atexit.register(shutdown)
 
 
 def is_initialized() -> bool:
@@ -101,6 +162,27 @@ def local_rank() -> int:
 
 def local_size() -> int:
     return _require_init().local_size
+
+
+def cross_rank() -> int:
+    return _require_init().cross_rank
+
+
+def cross_size() -> int:
+    return _require_init().cross_size
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of processes; as in the
+    JAX package, tested locally: this host's ``local_size`` times the host
+    count accounts for every process."""
+    st = _require_init()
+    return st.local_size * max(st.cross_size, 1) == st.size
+
+
+def backend() -> str:
+    """The process group's backend, ``"nccl"`` or ``"gloo"``."""
+    return _require_init().backend
 
 
 def device() -> torch.device:

@@ -1,0 +1,110 @@
+"""Environment-variable configuration: the knobs the port reads so far.
+
+Mirrors ``horovod_tpu/common/config.py`` (``env_int``/``env_bool``/
+``env_float``/``env_str``, ``Config``, ``get_config``, ``reset_config``),
+trimmed to the knobs of the data-parallel slice. Every knob is read as
+``HVD_TPU_<NAME>`` first, then ``HOROVOD_<NAME>``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+def _env(name: str, default: Optional[str] = None) -> Optional[str]:
+    """Read ``HVD_TPU_<name>`` falling back to ``HOROVOD_<name>``."""
+    v = os.environ.get("HVD_TPU_" + name)
+    if v is None:
+        v = os.environ.get("HOROVOD_" + name)
+    return default if v is None else v
+
+
+def env_int(name: str, default: int) -> int:
+    v = _env(name)
+    try:
+        return int(v) if v not in (None, "") else default
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    v = _env(name)
+    try:
+        return float(v) if v not in (None, "") else default
+    except ValueError:
+        return default
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    v = _env(name)
+    if v in (None, ""):
+        return default
+    return v.lower() not in ("0", "false", "no", "off")
+
+
+def env_str(name: str, default: str = "") -> str:
+    v = _env(name)
+    return default if v in (None, "") else v
+
+
+@dataclasses.dataclass
+class Config:
+    """Snapshot of the runtime knobs.
+
+    ``fusion_threshold_bytes`` is the reference's 64 MiB fusion buffer and
+    the gradient bucket budget unless ``bucket_bytes`` is set;
+    ``overlap_buckets`` off makes the eager gradient sync one bucket;
+    buckets under ``small_bucket_floor`` bytes take one dense reduction.
+    ``tpu_operations`` picks the ``torch.distributed`` backend (``NCCL`` or
+    ``GLOO``; empty: NCCL when the process has a card, gloo otherwise).
+    The rendezvous is rank 0's TCP store; a launched world of more than one
+    process needs its address and port."""
+
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
+    bucket_bytes: int = 0
+    overlap_buckets: bool = True
+    small_bucket_floor: int = 0
+    tpu_operations: str = ""
+    gloo_timeout_seconds: float = 30.0
+    rendezvous_addr: str = ""
+    rendezvous_port: int = 0
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        d = cls()
+        return cls(
+            fusion_threshold_bytes=env_int("FUSION_THRESHOLD",
+                                           d.fusion_threshold_bytes),
+            bucket_bytes=env_int("BUCKET_BYTES", d.bucket_bytes),
+            overlap_buckets=env_bool("OVERLAP_BUCKETS", d.overlap_buckets),
+            small_bucket_floor=env_int("SMALL_BUCKET_FLOOR",
+                                       d.small_bucket_floor),
+            tpu_operations=env_str("TPU_OPERATIONS", d.tpu_operations).upper(),
+            gloo_timeout_seconds=env_float("GLOO_TIMEOUT_SECONDS",
+                                           d.gloo_timeout_seconds),
+            # the launcher also exports the reference's gloo names
+            rendezvous_addr=env_str(
+                "RENDEZVOUS_ADDR",
+                os.environ.get("HOROVOD_GLOO_RENDEZVOUS_ADDR", "")),
+            rendezvous_port=env_int(
+                "RENDEZVOUS_PORT",
+                int(os.environ.get("HOROVOD_GLOO_RENDEZVOUS_PORT") or 0)),
+        )
+
+
+_config: Optional[Config] = None
+
+
+def get_config() -> Config:
+    global _config
+    if _config is None:
+        _config = Config.from_env()
+    return _config
+
+
+def reset_config() -> None:
+    """Re-read the environment on next access (``init`` and tests)."""
+    global _config
+    _config = None

@@ -5,6 +5,7 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     from_jax_params,
     init_opt_state,
     init_params,
+    lm_loss,
     make_forward,
     make_grad_fn,
     make_train_step,

@@ -7,8 +7,14 @@ here with pp = 1, so both packages give bit-identical arrays for a seed),
 ``_rmsnorm``, ``_rope``, ``_attention_block``, ``_dense_ffn``, ``_block``,
 ``forward_loss_spmd`` without pp/tp/sp/ep (:meth:`Transformer.forward`),
 ``make_forward``, ``make_grad_fn``, ``make_train_step`` and
-``init_opt_state``. The other parallel axes and MoE arrive with later
-slices of the port; ``n_experts > 0`` raises.
+``init_opt_state``. ``make_grad_fn``/``make_train_step`` take a data-
+parallel mesh: each rank runs its rows of the global batch
+(:func:`~horovod_tpu_torch.parallel.mesh.shard_batch`), the loss is
+averaged over dp, and the gradients are the full-batch mean, the average
+over dp of every rank's local-mean gradient (the JAX step ``psum``s
+gradients of a dp-``pmean``'d loss, which gives dp times that; ROADMAP
+Queue 3). The other parallel axes and MoE arrive with later slices of the
+port; a mesh with tp, sp, ep or pp > 1, or ``n_experts > 0``, raises.
 
 Attention goes through :func:`ops.attention.attend` and the loss through
 :func:`ops.xent.fused_softmax_xent`, i.e. through the port's CUDA kernels
@@ -35,6 +41,8 @@ from horovod_tpu_torch.common.basics import resolve_device
 from horovod_tpu_torch.common.tree import flatten_dotted
 from horovod_tpu_torch.models.scan_util import multi_step
 from horovod_tpu_torch.ops.attention import attend
+from horovod_tpu_torch.ops.mesh_collectives import start_preduce
+from horovod_tpu_torch.ops.reduce_op import Average
 from horovod_tpu_torch.ops.xent import fused_softmax_xent
 
 
@@ -215,15 +223,50 @@ def make_forward(cfg: TransformerConfig) -> Callable:
     return fwd
 
 
-def make_grad_fn(cfg: TransformerConfig) -> Callable:
+def lm_loss(model: Transformer, batch) -> torch.Tensor:
+    """The differentiated objective ``loss + 0.01 * aux`` of a
+    ``(tokens, targets)`` batch, the ``loss_fn`` of
+    :func:`~horovod_tpu_torch.train.overlap.make_overlap_train_step`."""
+    loss, aux = model(*batch)
+    return loss + 0.01 * aux
+
+
+def _dp_axis(mesh):
+    """The mesh's dp axis when it runs collectives (size > 1, as the JAX
+    ``_psum_if``), else None; the other axes are later slices."""
+    if mesh is None:
+        return None
+    for a in ("pp", "ep", "sp", "tp"):
+        if mesh.shape[a] > 1:
+            raise NotImplementedError(
+                f"the port's transformer is data-parallel so far; {a}="
+                f"{mesh.shape[a]} arrives with the slice that ports it")
+    return mesh.axis("dp") if mesh.shape["dp"] > 1 else None
+
+
+def _dp_average(tensors, axis):
+    """Each tensor averaged over ``axis``, all issued before the first
+    wait."""
+    pending = [start_preduce(t, axis, Average) for t in tensors]
+    return [p.wait() for p in pending]
+
+
+def make_grad_fn(cfg: TransformerConfig, mesh=None) -> Callable:
     """``grad_fn(model, tokens, targets) -> (loss, aux, grads)``, with
-    ``grads`` keyed like the model's ``state_dict``."""
+    ``grads`` keyed like the model's ``state_dict``. Over a dp mesh,
+    tokens/targets are this rank's rows, and loss, aux and grads come back
+    averaged over dp (the full-batch values)."""
+    dp = _dp_axis(mesh)
+
     def grad_fn(model: Transformer, tokens, targets):
         _check_cfg(model, cfg)
         loss, aux = model(tokens, targets)
         names, params = zip(*model.named_parameters())
         grads = torch.autograd.grad(loss + 0.01 * aux, params)
-        return loss.detach(), aux.detach(), dict(zip(names, grads))
+        loss, aux = loss.detach(), aux.detach()
+        if dp is not None:
+            loss, aux, *grads = _dp_average([loss, aux, *grads], dp)
+        return loss, aux, dict(zip(names, grads))
 
     return grad_fn
 
@@ -236,18 +279,32 @@ def init_opt_state(optimizer_factory: Callable, model: Transformer
     return optimizer_factory(model.parameters())
 
 
-def make_train_step(cfg: TransformerConfig, scan_steps: int = 1) -> Callable:
+def make_train_step(cfg: TransformerConfig, mesh=None,
+                    scan_steps: int = 1) -> Callable:
     """``step(model, optimizer, tokens, targets) -> (model, optimizer,
     loss, aux)``: forward, backward and one optimizer step, updating the
     parameters and the optimizer state in place (the JAX step donates
-    them). ``scan_steps > 1`` chains that many steps on the SAME batch
-    (:func:`scan_util.multi_step`); loss and aux are the last step's."""
+    them). Over a dp mesh, tokens/targets are this rank's rows; every
+    gradient is averaged over dp before the step (each issued as soon as
+    backward is done, all waited on before the optimizer reads them), and
+    loss and aux are the dp averages. ``scan_steps > 1`` chains that many
+    steps on the SAME batch (:func:`scan_util.multi_step`); loss and aux
+    are the last step's."""
+    dp = _dp_axis(mesh)
+
     def one_step(model: Transformer, optimizer, tokens, targets):
         _check_cfg(model, cfg)
         optimizer.zero_grad(set_to_none=True)
         loss, aux = model(tokens, targets)
         (loss + 0.01 * aux).backward()
+        loss, aux = loss.detach(), aux.detach()
+        if dp is not None:
+            params = [p for p in model.parameters() if p.grad is not None]
+            loss, aux, *grads = _dp_average(
+                [loss, aux, *(p.grad for p in params)], dp)
+            for p, g in zip(params, grads):
+                p.grad = g
         optimizer.step()
-        return model, optimizer, loss.detach(), aux.detach()
+        return model, optimizer, loss, aux
 
     return multi_step(one_step, n_carry=2, scan_steps=scan_steps)

@@ -16,10 +16,17 @@ Each step, for every parameter with a gradient: ``block_quantize_ef`` makes
 the int8 codes of ``grad + residual`` and the new residual in one pass,
 then ``fused_sgd_apply`` or ``fused_adam_apply`` consumes the codes
 directly (dequantize, moments and delta in one pass), and the delta is
-added to the parameter. In one process the gradient sync is the identity,
-so the codes never leave the card. The JAX package's two multi-device
-regimes (eager multi-process, and a live ``axis_name``) arrive with the
-data-parallel slice.
+added to the parameter. That is the ``identity_sync`` regime (one process,
+no axis): the codes never leave the card. The JAX package's two
+multi-device regimes densify instead, as there: ``block_quantize_ef``, then
+``block_dequantize``, then the sync (with ``axis=``, each blocked gradient
+reduced along the mesh axis by ``preduce``; with ``size() > 1`` and no
+axis, the eager bucketed allreduce of the optimizer module, the codec on
+the wire), then the optimizer update on the synced fp32 blocks in plain
+PyTorch (``_apply_sgd_blocks``/``_apply_adam_blocks``). The fused
+``fused_sgd``/``fused_adam`` kernels run in ``identity_sync`` only, as in
+the JAX package. ``backward_passes_per_step > 1`` folds the passes'
+gradients into their mean first (``optax.MultiSteps``).
 
 State per parameter, mirroring ``FusedOptState``: ``count`` and, in the
 codec's blocked ``[n_blocks, block]`` fp32 layout, ``mom`` (SGD momentum
@@ -37,10 +44,13 @@ from typing import Any, Iterable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch.common.process_sets import (ProcessSet,
+                                                   global_process_set)
 from horovod_tpu_torch.common.tree import flatten_dotted
 from horovod_tpu_torch.compression.error_feedback import ErrorFeedback
 from horovod_tpu_torch.compression.quantizers import BlockInt8Quantizer
-from horovod_tpu_torch.ops.quantize import (block_quantize,
+from horovod_tpu_torch.ops.quantize import (_h, block_dequantize,
+                                            block_quantize,
                                             block_quantize_ef,
                                             fused_adam_apply, fused_sgd_apply)
 from horovod_tpu_torch.ops.reduce_op import Average, ReduceOp, Sum
@@ -114,10 +124,14 @@ class FusedOptimizer(torch.optim.Optimizer):
     optimizer; :func:`DistributedOptimizer` builds it from a
     :class:`FusedOptSpec`. Raises on the combinations the JAX package
     refuses: a codec that is not block-int8, and ``op`` other than
-    Sum/Average."""
+    Sum/Average. ``axis``/``process_set`` pick the sync regime (module
+    doc)."""
 
     def __init__(self, params, spec: FusedOptSpec, compression=None,
-                 op: ReduceOp = Average):
+                 op: ReduceOp = Average, axis=None,
+                 process_set: ProcessSet = global_process_set,
+                 backward_passes_per_step: int = 1):
+        from horovod_tpu_torch.train.optimizer import GradAccumulator
         if spec.kind not in ("sgd", "adam"):
             raise ValueError(f"unknown fused optimizer kind {spec.kind!r}")
         ef = isinstance(compression, ErrorFeedback)
@@ -134,6 +148,8 @@ class FusedOptimizer(torch.optim.Optimizer):
         self.spec, self.codec, self.ef = spec, codec, ef
         self.block = codec.block_size
         self.use_mom = spec.kind == "adam" or spec.momentum != 0.0
+        self.op, self.axis, self.process_set = op, axis, process_set
+        self._multi = GradAccumulator(backward_passes_per_step)
         super().__init__(params, dict(lr=spec.lr, momentum=spec.momentum,
                                       betas=(spec.b1, spec.b2), eps=spec.eps))
 
@@ -158,6 +174,16 @@ class FusedOptimizer(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        params = [p for g in self.param_groups for p in g["params"]]
+        if not self._multi.advance(params):
+            return loss
+        for p in params:
+            p.grad = self._multi.mean(p)
+        self._multi.reset()
+        from horovod_tpu_torch.common.basics import is_initialized, size
+        if self.axis is not None or (is_initialized() and size() > 1):
+            self._step_synced()
+            return loss
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is None:
@@ -167,6 +193,50 @@ class FusedOptimizer(torch.optim.Optimizer):
                     self._init_state(p, state)
                 p.add_(_from_blocks(self._delta(group, p.grad, state), p))
         return loss
+
+    def _step_synced(self) -> None:
+        """The two multi-device regimes: quantize with EF, dequantize,
+        sync, and the blocked update in plain PyTorch."""
+        from horovod_tpu_torch.train.optimizer import (_axis_allreduce,
+                                                       _eager_allreduce_tree)
+        todo = []   # (group, p, state, qdq blocks)
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    self._init_state(p, state)
+                blocks = _to_blocks(p.grad, self.block)
+                if self.ef:
+                    blocks = blocks + state["residual"]
+                vals, scales, res = block_quantize_ef(blocks)
+                if self.ef:
+                    state["residual"] = res
+                todo.append((group, p, state, block_dequantize(vals, scales)))
+        if self.axis is not None:
+            synced = _axis_allreduce([d for *_, d in todo], self.op,
+                                     self.axis, 1.0, 1.0)
+        else:
+            synced = _eager_allreduce_tree(
+                [_from_blocks(d, p) for _, p, _, d in todo], self.op,
+                self.process_set, self.codec, 1.0, 1.0)
+            synced = [_to_blocks(s, self.block) for s in synced]
+        for (group, p, state, _), g in zip(todo, synced):
+            t = state["count"] + 1
+            if self.spec.kind == "sgd":
+                delta, mom = _apply_sgd_blocks(g, state.get("mom"),
+                                               group["lr"],
+                                               group["momentum"])
+                if mom is not None:
+                    state["mom"] = mom
+            else:
+                b1, b2 = group["betas"]
+                delta, state["mom"], state["vel"] = _apply_adam_blocks(
+                    g, state["mom"], state["vel"], group["lr"], b1, b2,
+                    group["eps"], *_bias_corrections(b1, b2, t))
+            state["count"] = t
+            p.add_(_from_blocks(delta, p))
 
     def _delta(self, group: dict, grad: torch.Tensor, state: dict
                ) -> torch.Tensor:
@@ -228,3 +298,23 @@ def _check_state_shape(name: str, key: str, src: torch.Tensor,
         raise ValueError(f"{key} of {name!r}: the JAX state is "
                          f"{tuple(src.shape)}, this optimizer's "
                          f"{tuple(dst.shape)} (another block size?)")
+
+
+def _apply_sgd_blocks(g_blocks, mom, lr, momentum):
+    """optax.sgd on already-dequantized fp32 blocks (the multi-device
+    regimes, where the reduction had to densify)."""
+    h = _h(g_blocks, lr, momentum)
+    if mom is None:
+        return -h[0] * g_blocks, None
+    m = g_blocks + h[1] * mom
+    return -h[0] * m, m
+
+
+def _apply_adam_blocks(g_blocks, m, v, lr, b1, b2, eps, bc1, bc2):
+    """optax.adam on already-dequantized fp32 blocks, in fp32 with the
+    hyperparameters as fp32 device values (divisions stay IEEE)."""
+    h = _h(g_blocks, lr, b1, b2, eps, bc1, bc2)
+    m = h[1] * m + (1.0 - h[1]) * g_blocks
+    v = h[2] * v + (1.0 - h[2]) * g_blocks * g_blocks
+    delta = -h[0] * (m / h[4]) / (torch.sqrt(v / h[5]) + h[3])
+    return delta, m, v

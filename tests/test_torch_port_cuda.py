@@ -256,3 +256,106 @@ def test_fused_optimizer_step_on_card_matches_cpu(dev):
 def test_quantize_kernels_refuse_unsupported_dtypes(dev, call):
     with pytest.raises(TypeError):
         call(dev)
+
+
+# -- data parallelism over NCCL (a world of one on the card) -------------------
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """An NCCL process group of world 1 and its dp mesh; an axis of size 1
+    still runs its collectives (on NCCL's stream)."""
+    import horovod_tpu_torch as hvd
+    hvd.shutdown()
+    hvd.init()
+    yield hvd.build_mesh(dp=1)
+    hvd.shutdown()
+
+
+def test_preduce_quantized_on_nccl_world_of_one(nccl_mesh):
+    """reduce_scatter (one slice), the quantize kernel, the gather, one
+    dequantize: the codes·scales of the input, equal to the plain
+    versions."""
+    from horovod_tpu_torch.compression import BlockInt8Quantizer
+    from horovod_tpu_torch.ops.mesh_collectives import preduce_quantized
+    from horovod_tpu_torch.ops.reduce_op import Average
+    x = _rand(torch.device("cuda", 0), 65536 + 300, seed=30)
+    before = (quantize.quantize_cuda.launches,
+              quantize.dequantize_cuda.launches)
+    got = preduce_quantized(x, nccl_mesh.axis("dp"), BlockInt8Quantizer(256),
+                            Average)
+    assert (quantize.quantize_cuda.launches,
+            quantize.dequantize_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref = BlockInt8Quantizer(256).qdq(x.cpu())
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.shape == x.shape
+    assert float((got.cpu() - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("compression", [None, "int8"])
+def test_bucketed_grad_sync_on_nccl_world_of_one(nccl_mesh, compression):
+    """Three buckets of a small tree: dense, the average of one rank is the
+    input; int8, each bucket's packed vector quantized once and
+    dequantized once (blocks cross leaf edges, as in the JAX plan)."""
+    from horovod_tpu_torch.compression import BlockInt8Quantizer
+    from horovod_tpu_torch.train import buckets
+    from horovod_tpu_torch.train.overlap import bucketed_grad_sync
+    d = torch.device("cuda", 0)
+    tree = {"a": _rand(d, 300, 7, seed=31), "b": _rand(d, 1000, seed=32),
+            "c": _rand(d, 64, 64, seed=33)}
+    codec = BlockInt8Quantizer(256) if compression else None
+    plan = buckets.plan_buckets(tree, 9000)
+    before = (quantize.quantize_cuda.launches,
+              quantize.dequantize_cuda.launches)
+    out = bucketed_grad_sync(tree, nccl_mesh.axis("dp"), bucket_bytes=9000,
+                             compression=codec)
+    n = plan.num_buckets if compression else 0
+    assert plan.num_buckets == 3
+    assert (quantize.quantize_cuda.launches,
+            quantize.dequantize_cuda.launches) == (before[0] + n,
+                                                   before[1] + n)
+    leaves = [tree[k] for k in sorted(tree)]
+    for bucket in plan.buckets:
+        vec = buckets.pack([t.cpu() for t in leaves], bucket)
+        if codec is not None:
+            vec = codec.qdq(vec)
+        for i, want in zip(bucket.indices, buckets.unpack(
+                vec, bucket, [t.cpu() for t in leaves])):
+            got = out[sorted(tree)[i]]
+            assert got.is_cuda
+            assert float((got.cpu() - want).abs().max()) <= 1e-6
+
+
+def test_overlap_engine_on_the_card_matches_the_cpu(nccl_mesh):
+    """The hooks launch each bucket from the backward pass on the card and
+    the next microbatch runs while it is in flight; the synced gradients
+    equal the mean of the same model's microbatch gradients on the
+    CPU."""
+    from horovod_tpu_torch.train.overlap import pipelined_accumulate
+    torch.manual_seed(0)
+    cpu = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(),
+                              torch.nn.Linear(256, 64))
+    card = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(),
+                               torch.nn.Linear(256, 64)).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x, y = torch.randn(32, 64), torch.randn(32, 64)
+
+    def loss_fn(m, b):
+        return ((m(b[0]) - b[1]) ** 2).mean()
+
+    micro = tuple(t.reshape(4, 8, 64) for t in (x, y))
+    _, got = pipelined_accumulate(loss_fn, card,
+                                  tuple(t.cuda() for t in micro),
+                                  axis=nccl_mesh.axis("dp"), bucket_bytes=4096)
+    want = dict(zip([n for n, _ in cpu.named_parameters()],
+                    [torch.zeros_like(p) for p in cpu.parameters()]))
+    for k in range(4):
+        gs = torch.autograd.grad(loss_fn(cpu, (x[8 * k:8 * k + 8],
+                                               y[8 * k:8 * k + 8])),
+                                 list(cpu.parameters()))
+        for (n, _), g in zip(cpu.named_parameters(), gs):
+            want[n] += g / 4
+    torch.cuda.synchronize()
+    for n, g in got.items():
+        assert g.is_cuda
+        assert float((g.cpu() - want[n]).abs().max()) <= 1e-5, n

@@ -201,21 +201,54 @@ def test_fused_rejects_unsupported_combinations():
 
 
 def test_wrapper_rejects_adasum_and_accumulation():
+    """Adasum raises as in the JAX package; ``backward_passes_per_step=2``
+    steps as ``optax.MultiSteps`` does: the first pass leaves the
+    parameters, the second applies the mean of the two passes' gradients
+    (wrapped torch optimizer and fused optimizer alike)."""
     ps = [torch.nn.Parameter(torch.zeros(4))]
     with pytest.raises(ValueError, match="Adasum"):
         th.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), op=th.Adasum,
                                 compression=Compression.int8)
     with pytest.raises(NotImplementedError, match="Adasum"):
         th.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), op=th.Adasum)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        th.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1),
-                                backward_passes_per_step=2)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        th.DistributedOptimizer(th.fused_adam(1e-3), ps,
-                                compression=Compression.int8,
-                                backward_passes_per_step=2)
+    rng = np.random.RandomState(9)
+    grads = [_param_tree(rng) for _ in range(4)]
+    for spec, make in (
+            (optax.sgd(0.1), lambda named: th.DistributedOptimizer(
+                torch.optim.SGD([p for _, p in named], lr=0.1),
+                backward_passes_per_step=2)),
+            (hvd_fused_adam(), lambda named: th.DistributedOptimizer(
+                th.fused_adam(1e-3), named, compression=ErrorFeedback(
+                    BlockInt8Quantizer(256)), backward_passes_per_step=2))):
+        jax_tx = optax.MultiSteps(spec, every_k_schedule=2)
+        init = _param_tree(np.random.RandomState(5))
+        p_j = {k: jnp.asarray(v) for k, v in init.items()}
+        st = jax_tx.init(p_j)
+        p_t = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+               for k, v in init.items()}
+        opt = make(list(p_t.items()))
+        for i, g in enumerate(grads):
+            u, st = jax_tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                                  st, p_j)
+            p_j = optax.apply_updates(p_j, u)
+            for k, p in p_t.items():
+                p.grad = torch.from_numpy(g[k].copy())
+            opt.step()
+            for k, p in p_t.items():
+                np.testing.assert_allclose(p.detach().numpy(),
+                                           np.asarray(p_j[k]), atol=1e-5)
+                if i % 2 == 0:    # the first pass of a step moves nothing
+                    assert p.grad is None
     with pytest.raises(TypeError):
         th.DistributedOptimizer(optax.adam(1e-3))
+
+
+def hvd_fused_adam():
+    """JAX's fused Adam under EF int8 (the transform MultiSteps wraps)."""
+    import horovod_tpu as hvd_mod
+    return hvd_mod.DistributedOptimizer(
+        hvd_mod.fused_adam(1e-3),
+        compression=JErrorFeedback(JBlockInt8Quantizer(256, interpret=True)))
 
 
 # -- blocking ------------------------------------------------------------------

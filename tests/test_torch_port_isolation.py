@@ -103,18 +103,72 @@ def test_identity_from_env(monkeypatch):
         horovod_tpu_torch.shutdown()
 
 
-def test_multi_process_world_raises(monkeypatch):
+def test_two_process_gloo_world_initializes_and_shuts_down(tmp_path):
+    """A launched world of 2 (the ``init`` worker of
+    tests/test_torch_port_dp.py, gloo on the CPU) starts its process group
+    with each rank's identity, cross values included, and shuts down
+    clean."""
+    from test_torch_port_dp import spawn
+    ranks = spawn("init", 2, tmp_path)
+    for r, res in enumerate(ranks):
+        assert (int(res["rank"]), int(res["size"])) == (r, 2)
+        assert (int(res["local_rank"]), int(res["local_size"])) == (r, 2)
+        assert (int(res["cross_rank"]), int(res["cross_size"])) == (0, 1)
+        assert bool(res["is_homogeneous"]) and bool(res["backend_is_gloo"])
+        assert int(res["world"]) == 2
+        assert res["after_shutdown"].tolist() == [False, False]
+
+
+def test_world_of_one_starts_a_group_and_needs_no_rendezvous(monkeypatch):
+    import torch.distributed as dist
+    horovod_tpu_torch.shutdown()
+    for k in ("HVD_TPU_SIZE", "HOROVOD_SIZE", "HVD_TPU_RANK", "HOROVOD_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_TPU_OPERATIONS", "GLOO")
+    try:
+        horovod_tpu_torch.init()
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert (horovod_tpu_torch.cross_rank(),
+                horovod_tpu_torch.cross_size()) == (0, 1)
+        assert horovod_tpu_torch.is_homogeneous()
+    finally:
+        horovod_tpu_torch.shutdown()
+    assert not dist.is_initialized()
+
+
+def test_init_refuses_a_world_it_cannot_form(monkeypatch):
     horovod_tpu_torch.shutdown()
     monkeypatch.setenv("HVD_TPU_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    for k in ("HVD_TPU_RENDEZVOUS_ADDR", "HOROVOD_RENDEZVOUS_ADDR",
+              "HOROVOD_GLOO_RENDEZVOUS_ADDR", "HVD_TPU_RENDEZVOUS_PORT",
+              "HOROVOD_RENDEZVOUS_PORT", "HOROVOD_GLOO_RENDEZVOUS_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="rendezvous"):
+        horovod_tpu_torch.init()
+    monkeypatch.setenv("HVD_TPU_RANK", "2")
+    with pytest.raises(ValueError, match="outside"):
+        horovod_tpu_torch.init()
+    monkeypatch.setenv("HVD_TPU_RANK", "0")
+    monkeypatch.setenv("HOROVOD_TPU_OPERATIONS", "MPI")
+    with pytest.raises(ValueError, match="NCCL or GLOO"):
         horovod_tpu_torch.init()
     assert not horovod_tpu_torch.is_initialized()
 
 
+def test_nccl_without_a_card_raises(no_cuda, monkeypatch):
+    horovod_tpu_torch.shutdown()
+    monkeypatch.setenv("HOROVOD_TPU_OPERATIONS", "NCCL")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        horovod_tpu_torch.init()
+
+
 def test_new_modules_import_and_export():
+    from horovod_tpu_torch.common import config, process_sets, topology
     from horovod_tpu_torch.compression import Compression, ErrorFeedback
-    from horovod_tpu_torch.ops import quantize, reduce_op
-    from horovod_tpu_torch.train import fused_apply, optimizer
+    from horovod_tpu_torch.ops import mesh_collectives, quantize, reduce_op
+    from horovod_tpu_torch.parallel import mesh
+    from horovod_tpu_torch.train import (buckets, fused_apply, guard,
+                                         optimizer, overlap)
     assert horovod_tpu_torch.Compression is Compression
     assert horovod_tpu_torch.ErrorFeedback is ErrorFeedback
     assert horovod_tpu_torch.DistributedOptimizer is \
@@ -122,6 +176,15 @@ def test_new_modules_import_and_export():
     assert horovod_tpu_torch.fused_adam is fused_apply.fused_adam
     assert horovod_tpu_torch.ReduceOp is reduce_op.ReduceOp
     assert len(quantize.LAUNCHERS) == 6
+    assert horovod_tpu_torch.build_mesh is mesh.build_mesh
+    assert horovod_tpu_torch.make_overlap_train_step is \
+        overlap.make_overlap_train_step
+    assert horovod_tpu_torch.broadcast_parameters is \
+        optimizer.broadcast_parameters
+    assert horovod_tpu_torch.global_process_set is \
+        process_sets.global_process_set
+    for m in (config, topology, mesh_collectives, buckets, guard):
+        assert m.__doc__
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
