@@ -58,6 +58,34 @@ from the same seed-0 weights and 8-row batch:
   full-batch one, both ranks hold bit-identical parameters after every
   step, and the int8 launch counts are those of n = 2.
 
+The observability slice adds three phases, each around steps of a path
+above with ``TelemetryCallback`` (step timer, goodput ledger, time series,
+anomaly engine, ``torch.profiler`` capture, memory gauges), the
+process-wide observability state reset before each:
+
+* ``[telemetry]``: ``TELEMETRY_STEPS`` AdamW steps of ``make_train_step``
+  (flash_attn_fwd and xent_fwd), ``HVD_TPU_GOODPUT_WINDOW`` 5, the
+  observability and profile directories in a temporary directory, the
+  first two steps captured. It checks the step, token and histogram
+  counts, ``hvd_mfu`` in (0, 1] against the card's row of the peak table,
+  the card's FLOP count against the same step counted on the CPU (over
+  meta tensors: shapes only) within ``FLOPS_TOL``, two closed goodput
+  windows whose categories sum to their wall time (and the ``1 − MFU``
+  attribution over them, as bench.py reports it), the 12 points of the
+  time series, one capture whose Chrome trace names both kernels, and
+  ``0 < peak_bytes_in_use <= bytes_limit``; then it times the step with
+  and without the callback, in turns (which goes first swapped every
+  pair), with the hooks' own host time, the StepTimer's MFU of each
+  observed step, and the captures and findings the pairs set off.
+* ``[telemetry_fused_adam]``: three steps of the fused Adam path
+  (quantize_ef and fused_adam) inside the callback.
+* ``[telemetry_dp_int8]``: three steps of ``[dp_nccl_int8]`` inside the
+  callback: the plan gauges equal the plan, and the int8 pre/wire byte
+  counters equal the bytes computed here from the leaf shapes and the
+  block size. The exposed-communication gauge of the eager
+  ``DistributedOptimizer`` is read from ``[dp_gloo_2rank]``, whose ranks
+  run three eager int8 steps too (an eager sync needs a world of two).
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -103,6 +131,13 @@ DP_GRAD_TOL = 2e-2
 DP_INT8_TOL = 5e-2        # tests/test_overlap.py:186
 GLOO_STEPS = 3
 GLOO_TIMEOUT_S = 420
+TELEMETRY_STEPS = 12
+TELEMETRY_WINDOW = 5      # HVD_TPU_GOODPUT_WINDOW: two closed windows
+TELEMETRY_PAIRS = 20      # steps with and without the callback, in turns
+OBSERVED_STEPS = 3        # [telemetry_fused_adam], [telemetry_dp_int8]
+# the card's FLOP count of a step against the CPU's: both add the same
+# kernel formulas to FlopCounterMode's count, so they should be equal
+FLOPS_TOL = 1e-3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -557,10 +592,235 @@ def drive_dp(torch, hvd, label, mesh, cfg, init_sd, batch, counters,
     return losses, grads1, launches, 1e3 * med
 
 
+def reset_observability() -> None:
+    """Fresh process-wide observability state: registry, flight ring,
+    time series, goodput ledger, anomaly engine and profile manager."""
+    from horovod_tpu_torch import profiling
+    from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+    from horovod_tpu_torch.metrics import anomaly, goodput, timeseries
+    from horovod_tpu_torch.metrics.registry import default_registry
+    default_registry().clear()
+    recorder().clear()
+    timeseries.reset()
+    goodput.reset()
+    anomaly.reset()
+    profiling.reset()
+
+
+def observed_steps(cb, n, step_fn):
+    """``n`` steps of ``step_fn`` (returning the loss tensor) inside the
+    callback, the loss read inside the step; returns the losses."""
+    losses = []
+    for _ in range(n):
+        cb.on_step_begin()
+        losses.append(float(step_fn()))
+        cb.on_step_end()
+    return losses
+
+
+def quartiles_ms(seconds) -> str:
+    """First quartile, median and third quartile of ``seconds``, in ms."""
+    s = sorted(seconds)
+    return ",".join(f"{1e3 * s[(len(s) - 1) * k // 4]:.6f}" for k in (1, 2, 3))
+
+
+def trace_kernel_names(path: str) -> list:
+    """The device kernels a capture's Chrome trace names."""
+    with open(os.path.join(path, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sorted({e.get("name", "") for e in events
+                   if e.get("cat") == "kernel"})
+
+
+def phase_telemetry(torch, cfg, init_sd, batch, counters):
+    """[telemetry]: the flagship's AdamW steps inside TelemetryCallback,
+    every check of the module docstring. Returns the kernels' launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import profiling
+    from horovod_tpu_torch.metrics import anomaly, goodput, mfu, timeseries
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          make_grad_fn, make_train_step)
+    from horovod_tpu_torch.profiling import attribution
+    tokens, targets = batch
+    knobs = ("HVD_TPU_GOODPUT_WINDOW", "HVD_TPU_OBS_DIR",
+             "HVD_TPU_PROFILE_DIR")
+    with tempfile.TemporaryDirectory(prefix="telemetry_") as tmp:
+        obs, prof = os.path.join(tmp, "obs"), os.path.join(tmp, "profile")
+        os.environ.update(zip(knobs, (str(TELEMETRY_WINDOW), obs, prof)))
+        reset_observability()
+        model = Transformer(cfg)
+        model.load_state_dict(init_sd)
+        opt = init_opt_state(adamw, model)
+        step = make_train_step(cfg)
+        grad_fn = make_grad_fn(cfg)
+        cb = hvd.TelemetryCallback(
+            units_per_step=tokens.numel(), unit="tokens",
+            lowerable=lambda: (grad_fn, (model, tokens, targets)),
+            profile_steps=2)
+        for c in counters:
+            c.launches = 0
+        losses = observed_steps(cb, TELEMETRY_STEPS, lambda: step(
+            model, opt, tokens, targets)[2])
+        launches = {"flash_attention_fwd": counters[0].launches,
+                    "xent_fwd": counters[1].launches}
+        reg = hvd.metrics_snapshot()["registry"]
+        gp = goodput.snapshot()
+        windows = list(goodput.ledger().recent)
+        points = [p for p in timeseries.read_series(obs) if "step" in p]
+        caps = profiling.recent_captures()
+        kernels = trace_kernel_names(caps[0]["path"]) if caps else []
+        meta = Transformer(cfg, device="meta")
+        cpu_flops = mfu.flops_per_step(make_grad_fn(cfg), meta,
+                                       tokens.to("meta"), targets.to("meta"))
+        card_flops = cb.timer.flops_per_step
+        peak = mfu.device_peak_flops()
+        mfu_v = reg.get("hvd_mfu", {}).get("value")
+        att = attribution.attribute(gp, mfu=mfu_v)
+        n_params = sum(p.numel() for p in model.parameters())
+        analytic = mfu.analytic_flops(n_params, tokens.numel(), cfg.n_layers,
+                                      tokens.shape[1], cfg.d_model)
+
+        # the callback's cost: plain and observed steps in turns, which
+        # goes first swapped every pair; the hooks' own host time apart,
+        # and the StepTimer's MFU of each observed step
+        plain_s, observed_s, hooks_s, step_mfus = [], [], [], []
+        caps_before = len(profiling.recent_captures())
+        findings_before = len(anomaly.recent_findings())
+        for i in range(TELEMETRY_PAIRS):
+            for observed in ((False, True) if i % 2 else (True, False)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if not observed:
+                    float(step(model, opt, tokens, targets)[2])
+                    plain_s.append(time.perf_counter() - t0)
+                    continue
+                cb.on_step_begin()
+                t1 = time.perf_counter()
+                float(step(model, opt, tokens, targets)[2])
+                t2 = time.perf_counter()
+                cb.on_step_end()
+                t3 = time.perf_counter()
+                observed_s.append(t3 - t0)
+                hooks_s.append((t1 - t0) + (t3 - t2))
+                step_mfus.append(cb.timer.last_mfu)
+        pair_captures = len(profiling.recent_captures()) - caps_before
+        pair_findings = [f["kind"] for f in
+                         anomaly.recent_findings()[findings_before:]]
+        for k in knobs:
+            os.environ.pop(k)
+    n_layers = cfg.n_layers
+    flops_rel = (abs(card_flops - cpu_flops) / cpu_flops
+                 if card_flops and cpu_flops else None)
+    hbm_peak = reg.get("hvd_hbm_peak_bytes", {}).get("value")
+    hbm_limit = reg.get("hvd_hbm_limit_bytes", {}).get("value")
+    say("telemetry", steps=TELEMETRY_STEPS,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        pairs=TELEMETRY_PAIRS, step_ms_plain_q1_med_q3=quartiles_ms(plain_s),
+        step_ms_observed_q1_med_q3=quartiles_ms(observed_s),
+        hooks_ms_q1_med_q3=quartiles_ms(hooks_s),
+        mfu_median=sorted(step_mfus)[len(step_mfus) // 2]
+        if None not in step_mfus else None,
+        pair_captures=pair_captures, pair_findings=",".join(pair_findings),
+        mfu=mfu_v, peak_flops=peak, flops_source=cb.flops_source,
+        flops_per_step_card=card_flops, flops_per_step_cpu=cpu_flops,
+        flops_rel=flops_rel, tol_rel=FLOPS_TOL, flops_analytic=analytic,
+        goodput_windows=gp["windows"], books_violations=gp["books_violations"],
+        goodput_seconds=json.dumps(gp["seconds"], separators=(",", ":")),
+        goodput_fraction=gp["fraction"],
+        mfu_attribution=json.dumps(att, separators=(",", ":")),
+        series_points=len(points),
+        captures=len(caps), capture_bytes=caps[0]["bytes"] if caps else None,
+        trace_kernels=len(kernels), hbm_peak_bytes=hbm_peak,
+        hbm_limit_bytes=hbm_limit,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"telemetry: losses {losses}")
+    check(reg["hvd_steps_total"]["value"] == TELEMETRY_STEPS
+          and reg["hvd_step_time_seconds"]["count"] == TELEMETRY_STEPS
+          and reg["hvd_tokens_total"]["value"]
+          == TELEMETRY_STEPS * tokens.numel(),
+          f"telemetry: step/token counts {reg.get('hvd_steps_total')} "
+          f"{reg.get('hvd_tokens_total')}")
+    check(peak is not None and peak in dict(mfu.PEAK_BF16_FLOPS).values(),
+          f"telemetry: no peak-table row for "
+          f"{torch.cuda.get_device_name(0)!r}")
+    check(mfu_v is not None and 0.0 < mfu_v <= 1.0,
+          f"telemetry: hvd_mfu {mfu_v} not in (0, 1]")
+    check(cb.flops_source == "counted" and flops_rel is not None
+          and flops_rel <= FLOPS_TOL,
+          f"telemetry: card FLOPs {card_flops} vs CPU {cpu_flops} "
+          f"({cb.flops_source})")
+    check(gp["windows"] == 2 and gp["books_violations"] == 0,
+          f"telemetry: goodput {gp}")
+    check(att is not None and att["kernel_inefficiency"] is not None,
+          f"telemetry: MFU attribution {att}")
+    for w in windows:
+        check(abs(sum(w["seconds"].values()) - w["wall_s"])
+              <= goodput.ledger().tolerance * w["wall_s"],
+              f"telemetry: goodput window does not close: {w}")
+    check(len(points) == TELEMETRY_STEPS,
+          f"telemetry: {len(points)} series points")
+    check(len(caps) == 1 and caps[0]["bytes"] > 0,
+          f"telemetry: captures {caps}")
+    for want in ("flash_fwd_kernel", "xent_fwd_kernel"):
+        check(any(want in k for k in kernels),
+              f"telemetry: the capture names no {want}: {kernels[:20]}")
+    check(hbm_peak is not None and hbm_limit is not None
+          and 0 < hbm_peak <= hbm_limit,
+          f"telemetry: memory gauges {hbm_peak} / {hbm_limit}")
+    # one forward more than the steps: the FLOP count runs the step's
+    # forward and backward once on the card
+    want = {"flash_attention_fwd": n_layers * (TELEMETRY_STEPS + 1),
+            "xent_fwd": TELEMETRY_STEPS + 1}
+    check(launches == want, f"telemetry: launches {launches}, expected "
+                            f"{want}")
+    del model, opt
+    return launches
+
+
+def phase_telemetry_fused_adam(torch, cfg, init_sd, batch, counters, quant):
+    """[telemetry_fused_adam]: the fused int8 Adam path inside the
+    callback; returns its kernels' launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import DistributedOptimizer, ErrorFeedback, fused_adam
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.models import Transformer, make_train_step
+    from horovod_tpu_torch.profile_step import ADAM_LR
+    reset_observability()
+    model = Transformer(cfg)
+    model.load_state_dict(init_sd)
+    opt = DistributedOptimizer(fused_adam(ADAM_LR), model.named_parameters(),
+                               compression=ErrorFeedback(Compression.int8))
+    step = make_train_step(cfg)
+    cb = hvd.TelemetryCallback(units_per_step=batch[0].numel(),
+                               unit="tokens")
+    for c in (*counters, *quant.values()):
+        c.launches = 0
+    losses = observed_steps(cb, OBSERVED_STEPS,
+                            lambda: step(model, opt, *batch)[2])
+    got = {k: fn.launches for k, fn in quant.items()}
+    reg = hvd.metrics_snapshot()["registry"]
+    n_leaves = len(list(model.parameters()))
+    say("telemetry_fused_adam", steps=OBSERVED_STEPS,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        steps_total=reg["hvd_steps_total"]["value"],
+        launches=",".join(f"{k}:{v}" for k, v in got.items()))
+    check(reg["hvd_steps_total"]["value"] == OBSERVED_STEPS,
+          "telemetry_fused_adam: step count")
+    want = {k: (n_leaves * OBSERVED_STEPS
+                if k in ("quantize_ef", "fused_adam") else 0) for k in quant}
+    check(got == want, f"telemetry_fused_adam: launches {got}, expected "
+                       f"{want}")
+    del model, opt
+    return got
+
+
 def phase_dp_nccl(torch, cfg, init_sd, batch, train_losses, counters,
                   quant):
-    """[dp_nccl], [dp_nccl_int8] and [dp_nccl_fused_adam] over an NCCL
-    process group of world 1. Returns launches by phase and kernel."""
+    """[dp_nccl], [dp_nccl_int8], [dp_nccl_fused_adam] and
+    [telemetry_dp_int8] over an NCCL process group of world 1. Returns
+    launches by phase and kernel, step 1's full-batch gradients, the
+    bucket count and [telemetry_dp_int8]'s launches."""
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -640,8 +900,73 @@ def phase_dp_nccl(torch, cfg, init_sd, batch, train_losses, counters,
         adamw_loss5=train_losses[-1], rel=rel, tol_rel=EF_LOSS_TOL)
     check(rel <= EF_LOSS_TOL, f"dp_nccl_fused_adam: 5th loss "
                               f"{path_losses[-1]} is {rel} off AdamW's")
+    observed = phase_telemetry_dp_int8(torch, hvd, mesh, cfg, init_sd, batch,
+                                       counters, quant, plan)
     hvd.shutdown()
-    return out, ref_grads, plan.num_buckets
+    return out, ref_grads, plan.num_buckets, observed
+
+
+def phase_telemetry_dp_int8(torch, hvd, mesh, cfg, init_sd, batch, counters,
+                            quant, plan):
+    """[telemetry_dp_int8]: [dp_nccl_int8]'s step inside the callback. The
+    plan gauges must equal the plan, and the int8 byte counters the bytes
+    of the buckets' quantized slices: per bucket and microbatch, 4 bytes
+    an fp32 element before, and a byte an element plus a 4-byte scale a
+    block of the padded slice on the wire."""
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          lm_loss)
+    from horovod_tpu_torch.profile_step import DP_MICRO
+    from horovod_tpu_torch.train.overlap import jax_ordered_parameters
+    reset_observability()
+    model = Transformer(cfg)
+    model.load_state_dict(init_sd)
+    opt = init_opt_state(adamw, model)
+    step = hvd.make_overlap_train_step(lm_loss, mesh, "dp", n_micro=DP_MICRO,
+                                       compression=Compression.int8)
+    local = hvd.shard_batch(*batch, mesh)
+    cb = hvd.TelemetryCallback(units_per_step=batch[0].numel(),
+                               unit="tokens")
+    for c in (*counters, *quant.values()):
+        c.launches = 0
+    losses = observed_steps(cb, OBSERVED_STEPS,
+                            lambda: step(model, opt, local)[2])
+    step.flush()
+    launches = {"flash_attention_fwd": counters[0].launches,
+                "xent_fwd": counters[1].launches,
+                **{k: fn.launches for k, fn in quant.items()}}
+    reg = hvd.metrics_snapshot()["registry"]
+    leaves = jax_ordered_parameters(model)[1]
+    block = Compression.int8.block_size
+    calls = OBSERVED_STEPS * DP_MICRO
+    numels = [sum(leaves[i].numel() for i in b.indices)
+              for b in plan.buckets]
+    want_pre = calls * sum(4 * n for n in numels)
+    want_wire = calls * sum(-(-n // block) * (block + 4) for n in numels)
+    pre = reg['hvd_compression_pre_bytes_total{codec="int8"}']["value"]
+    wire = reg['hvd_compression_wire_bytes_total{codec="int8"}']["value"]
+    ratio = reg['hvd_compression_ratio{codec="int8"}']["value"]
+    count = reg["hvd_overlap_bucket_count"]["value"]
+    nbytes = reg["hvd_overlap_bucket_bytes"]["value"]
+    say("telemetry_dp_int8", steps=OBSERVED_STEPS,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        bucket_count=count, bucket_bytes=nbytes, pre_bytes=pre,
+        wire_bytes=wire, want_pre_bytes=want_pre, want_wire_bytes=want_wire,
+        ratio=ratio, block=block,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    check(reg["hvd_steps_total"]["value"] == OBSERVED_STEPS,
+          "telemetry_dp_int8: step count")
+    check(count == plan.num_buckets and nbytes == plan.total_bytes,
+          f"telemetry_dp_int8: plan gauges {count}, {nbytes} against "
+          f"{plan.num_buckets}, {plan.total_bytes}")
+    check(pre == want_pre and wire == want_wire,
+          f"telemetry_dp_int8: int8 bytes {pre}/{wire}, expected "
+          f"{want_pre}/{want_wire}")
+    per = plan.num_buckets * calls
+    check(launches["quantize"] == per and launches["dequantize"] == per,
+          f"telemetry_dp_int8: launches {launches}")
+    del model, opt
+    return launches
 
 
 def _free_port() -> int:
@@ -702,7 +1027,8 @@ def _run_gloo_ranks(torch, out_dir: str):
 def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
     """[dp_gloo_2rank]: two ranks of this script over gloo on cuda:0, with
     a timeout; each writes its results to a file. Returns rank 0's
-    launches."""
+    launches of the train and overlap_int8 paths (the eager path's are
+    checked here and printed)."""
     from horovod_tpu_torch.profile_step import DP_MICRO
     with tempfile.TemporaryDirectory(prefix="dp_gloo_") as out_dir:
         res, grads = _run_gloo_ranks(torch, out_dir)
@@ -710,7 +1036,7 @@ def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
     errs = grad_errors(grads[0], ref)
     worst = max(errs, key=lambda k: errs[k][0])
     same_grads = all(torch.equal(grads[0][k], grads[1][k]) for k in ref)
-    for key in ("train", "overlap_int8"):
+    for key in ("train", "overlap_int8", "eager_int8"):
         say("dp_gloo_2rank", path=key, seconds=res[0]["seconds"],
             losses=",".join(f"{x:.6f}" for x in res[0][f"{key}_losses"]),
             step_ms=",".join(f"{x:.3f}" for x in res[0][f"{key}_step_ms"]),
@@ -745,6 +1071,42 @@ def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
         check(rr["overlap_int8_launches"] == want_int8,
               f"dp_gloo_2rank overlap_int8: launches "
               f"{rr['overlap_int8_launches']}, expected {want_int8}")
+    # the eager int8 sync gathers every rank's codes of every leaf and
+    # dequantizes both; its bytes are each leaf's, every step
+    n_leaves = len(ref)
+    want_eager = {"flash_attention_fwd": n_layers * GLOO_STEPS,
+                  "xent_fwd": GLOO_STEPS,
+                  "quantize": n_leaves * GLOO_STEPS, "quantize_ef": 0,
+                  "dequantize": 2 * n_leaves * GLOO_STEPS, "fused_sgd0": 0,
+                  "fused_sgd": 0, "fused_adam": 0}
+    block = 256
+    want_pre = GLOO_STEPS * sum(4 * g.numel() for g in ref.values())
+    want_wire = GLOO_STEPS * sum(-(-g.numel() // block) * (block + 4)
+                                 for g in ref.values())
+    for r, rr in enumerate(res):
+        g = rr["eager_gauges"]
+        exposed = g.get("hvd_overlap_exposed_comm_seconds")
+        sync = g.get("hvd_overlap_sync_seconds")
+        say("telemetry_dp_int8", path="eager DistributedOptimizer, "
+            "dp_gloo_2rank", rank=r, exposed_comm_s=exposed, sync_s=sync,
+            exposed_comm_total_s=g.get(
+                "hvd_overlap_exposed_comm_seconds_total"),
+            bucket_count=g.get("hvd_overlap_bucket_count"),
+            pre_bytes=g.get('hvd_compression_pre_bytes_total{codec="int8"}'),
+            wire_bytes=g.get(
+                'hvd_compression_wire_bytes_total{codec="int8"}'),
+            want_pre_bytes=want_pre, want_wire_bytes=want_wire)
+        check(exposed is not None and sync is not None
+              and 0 < exposed <= sync,
+              f"telemetry_dp_int8: rank {r}'s eager sync gauges {g}")
+        check(g.get('hvd_compression_pre_bytes_total{codec="int8"}')
+              == want_pre and
+              g.get('hvd_compression_wire_bytes_total{codec="int8"}')
+              == want_wire, f"telemetry_dp_int8: rank {r}'s eager int8 "
+                            f"bytes {g}, expected {want_pre}/{want_wire}")
+        check(rr["eager_int8_launches"] == want_eager,
+              f"dp_gloo_2rank eager_int8: launches "
+              f"{rr['eager_int8_launches']}, expected {want_eager}")
     return {"dp_gloo_2rank": {k: res[0]["train_launches"].get(k, 0)
                               + res[0]["overlap_int8_launches"][k]
                               for k in want_int8}}
@@ -753,8 +1115,9 @@ def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
 def gloo_rank_main(out_dir: str) -> int:
     """One rank of [dp_gloo_2rank] (the launcher's identity in the
     environment): make_train_step over dp=2, then the overlap engine with
-    int8, GLOO_STEPS AdamW steps each from the seed-0 weights, 4 rows a
-    rank; losses, parameter digests after every step and launch counts to
+    int8, then the eager int8 ``DistributedOptimizer``, GLOO_STEPS AdamW
+    steps each from the seed-0 weights, 4 rows a rank; losses, parameter
+    digests after every step, launch counts and the eager sync's gauges to
     ``rank<r>.json``, step 1's synced gradients to ``grads<r>.pt``."""
     import torch
 
@@ -811,6 +1174,23 @@ def gloo_rank_main(out_dir: str) -> int:
     run("overlap_int8", lambda: ostep(model, opt, local)[2], True)
     ostep.flush()
     res["skipped"] = ostep.skipped
+
+    # the eager regime: DistributedOptimizer syncs the local gradients,
+    # its buckets timed on the overlap gauges
+    reset_observability()
+    model = Transformer(model.cfg)
+    model.load_state_dict(init_sd)
+    eopt = hvd.DistributedOptimizer(adamw(model.parameters()),
+                                    named_parameters=model.named_parameters(),
+                                    compression=Compression.int8)
+    estep = make_train_step(model.cfg)
+    run("eager_int8", lambda: estep(model, eopt, *local)[2], True)
+    reg = hvd.metrics_snapshot()["registry"]
+    res["eager_gauges"] = {k: reg[k]["value"] for k in (
+        "hvd_overlap_exposed_comm_seconds", "hvd_overlap_sync_seconds",
+        "hvd_overlap_exposed_comm_seconds_total", "hvd_overlap_bucket_count",
+        'hvd_compression_pre_bytes_total{codec="int8"}',
+        'hvd_compression_wire_bytes_total{codec="int8"}') if k in reg}
     res["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
         json.dump(res, f)
@@ -945,22 +1325,35 @@ def main() -> int:
         k["launches"] = quant_launches[k["name"]]
         check(k["launches"] > 0, f"{k['name']} never ran on its path")
 
+    # -- the train loop observed, from the seed-0 weights
+    observed = {
+        "telemetry": phase_telemetry(torch, model.cfg, init_sd,
+                                     (tokens, targets), counters),
+        "telemetry_fused_adam": phase_telemetry_fused_adam(
+            torch, model.cfg, init_sd, (tokens, targets), counters, quant)}
+
     # -- data parallelism over torch.distributed, from the seed-0 weights
-    dp_launches, ref_grads, n_buckets = phase_dp_nccl(
-        torch, model.cfg, init_sd, (tokens, targets), losses, counters,
-        quant)
+    dp_launches, ref_grads, n_buckets, observed["telemetry_dp_int8"] = \
+        phase_dp_nccl(torch, model.cfg, init_sd, (tokens, targets), losses,
+                      counters, quant)
     dp_launches.update(phase_dp_gloo(torch, ref_grads, n_buckets, n_layers))
     for k in kernels:
         k["dp_launches"] = {ph: got.get(k["name"], 0)
                             for ph, got in dp_launches.items()}
+        k["telemetry_launches"] = {ph: got.get(k["name"], 0)
+                                   for ph, got in observed.items()}
     for name in ("flash_attention_fwd", "xent_fwd", "quantize", "dequantize",
                  "quantize_ef"):
         check(any(got.get(name, 0) > 0 for got in dp_launches.values()),
               f"{name} never ran on a data-parallel path")
+    for name in ("flash_attention_fwd", "xent_fwd", "quantize", "dequantize",
+                 "fused_adam"):
+        check(any(got.get(name, 0) > 0 for got in observed.values()),
+              f"{name} never ran inside an observed step")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "dp_launches")
+            "dp_launches", "telemetry_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,11 @@ int8 quantization on the wire and error feedback
 ``fused_adam``). Hand-written CUDA kernels carry flash attention, the fused
 softmax cross-entropy, the block-int8 codec and the fused dequantize +
 optimizer apply (see ``ops/`` and ``csrc/``).
+
+The train loop is observed by ``TelemetryCallback`` (step time, tokens/s,
+MFU against the card's peak, the goodput ledger, the step time series,
+anomaly detectors, ``torch.profiler`` captures); ``metrics_snapshot()``
+returns the registry all of it writes to.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
@@ -25,6 +30,7 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     is_initialized,
     local_rank,
     local_size,
+    metrics_snapshot,
     rank,
     shutdown,
     size,
@@ -61,4 +67,8 @@ from horovod_tpu_torch.train import (  # noqa: F401
     fused_sgd,
     make_overlap_train_step,
     pipelined_accumulate,
+)
+from horovod_tpu_torch.train.callbacks import (  # noqa: F401
+    StepTimer,
+    TelemetryCallback,
 )

@@ -199,6 +199,25 @@ def device() -> torch.device:
     return torch.device("cuda", lr)
 
 
+def metrics_snapshot() -> dict:
+    """One-call observability snapshot, with the JAX package's four keys:
+    ``engine`` and ``stragglers`` are ``{}`` (the port has no negotiating
+    control plane, as the JAX package's backends without one report),
+    ``derived`` the ratios of those counters (``{}`` too), and
+    ``registry`` the process-wide metrics registry (step-time histograms,
+    throughput/MFU gauges, goodput, compression, overlap and guard
+    metrics). Needs no ``init``."""
+    from horovod_tpu_torch.metrics.engine import derived_ratios
+    from horovod_tpu_torch.metrics.registry import default_registry
+    engine: dict = {}
+    return {
+        "engine": engine,
+        "derived": derived_ratios(engine),
+        "stragglers": {},
+        "registry": default_registry().snapshot(),
+    }
+
+
 def resolve_device(dev=None) -> torch.device:
     """``None`` means the process's card (:func:`device`); anything else is
     taken as the caller's explicit choice."""

@@ -60,7 +60,9 @@ class Config:
     ``tpu_operations`` picks the ``torch.distributed`` backend (``NCCL`` or
     ``GLOO``; empty: NCCL when the process has a card, gloo otherwise).
     The rendezvous is rank 0's TCP store; a launched world of more than one
-    process needs its address and port."""
+    process needs its address and port. ``log_level`` and
+    ``log_hide_timestamp`` set the rank-tagged logger
+    (``common/logging.py``)."""
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     bucket_bytes: int = 0
@@ -70,6 +72,8 @@ class Config:
     gloo_timeout_seconds: float = 30.0
     rendezvous_addr: str = ""
     rendezvous_port: int = 0
+    log_level: str = "WARNING"
+    log_hide_timestamp: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -91,6 +95,9 @@ class Config:
             rendezvous_port=env_int(
                 "RENDEZVOUS_PORT",
                 int(os.environ.get("HOROVOD_GLOO_RENDEZVOUS_PORT") or 0)),
+            log_level=env_str("LOG_LEVEL", d.log_level).upper(),
+            log_hide_timestamp=env_bool("LOG_HIDE_TIME",
+                                        d.log_hide_timestamp),
         )
 
 

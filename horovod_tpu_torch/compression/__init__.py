@@ -3,8 +3,8 @@
 Mirrors ``horovod_tpu/compression/``: the ``Compressor`` contract and the
 fp16/bf16 casts (:mod:`.base`), block-wise int8 (CUDA kernels on the card),
 fp8 and 1-bit codecs (:mod:`.quantizers`), and residual-carrying error
-feedback (:mod:`.error_feedback`). The byte counters of
-``compression/metrics.py`` wait for the metrics registry.
+feedback (:mod:`.error_feedback`), and the pre/wire byte counters of
+the quantized transports (:mod:`.metrics`).
 """
 
 from horovod_tpu_torch.compression.base import (  # noqa: F401

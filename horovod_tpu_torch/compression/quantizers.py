@@ -75,6 +75,12 @@ class Quantizer(Compressor):
     def dequantize(self, q: Quantized, spec: QuantSpec):
         raise NotImplementedError
 
+    def wire_bytes(self, numel: int) -> int:
+        """Bytes :meth:`quantize` puts on the wire for a tensor of
+        ``numel`` elements, values plus scales, from the count alone (the
+        JAX package's ``_quantized_wire_bytes``)."""
+        raise NotImplementedError
+
     def qdq(self, x):
         """quantize∘dequantize: the simulated compression error feedback
         applies."""
@@ -125,6 +131,10 @@ class BlockInt8Quantizer(Quantizer):
     def _config(self):
         return (type(self).__name__, self.block_size)
 
+    def wire_bytes(self, numel: int) -> int:
+        blocks = -(-numel // self.block_size)
+        return blocks * self.block_size + blocks * 4   # int8 codes, fp32 scales
+
     def quantize(self, x):
         from horovod_tpu_torch.ops.quantize import block_quantize
         flat, spec = _flatten(x)
@@ -171,6 +181,9 @@ class FP8Quantizer(Quantizer):
     def _config(self):
         return (type(self).__name__, self.flavor)
 
+    def wire_bytes(self, numel: int) -> int:
+        return numel + 4                 # one byte a value, one fp32 scale
+
     def quantize(self, x):
         flat, spec = _flatten(x)
         f = flat.float()
@@ -193,6 +206,9 @@ class OneBitQuantizer(Quantizer):
     :class:`~horovod_tpu_torch.compression.error_feedback.ErrorFeedback`."""
 
     name = "onebit"
+
+    def wire_bytes(self, numel: int) -> int:
+        return -(-numel // 8) + 4        # 8 signs a byte, one fp32 mean
 
     def quantize(self, x):
         flat, spec = _flatten(x)

@@ -8,7 +8,8 @@ an edited source is rebuilt and an unchanged one is loaded as it is.
 
 Nothing is built when a module is imported: the first call on a CUDA
 tensor builds, or :func:`build_all` builds every kernel at once (one
-``nvcc`` per source, all started together).
+``nvcc`` per source, all started together). Every build is recorded as a
+compile (:func:`horovod_tpu_torch.profiling.compile_watch.note_build`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,13 +105,17 @@ def build_all(names: Iterable[str] = KERNELS) -> None:
     with _lock:
         todo = [(n, _target(n)) for n in names]
         todo = [(n, t) for n, t in todo if not os.path.exists(t)]
+        t0 = time.perf_counter()
         procs = [(_start(n, t), n, t) for n, t in todo]
-        errors = []
+        errors, seconds = [], {}
         for p, n, t in procs:
             try:
                 _finish(p, n, t)
+                seconds[n] = time.perf_counter() - t0
             except RuntimeError as e:
                 errors.append(str(e))
+        from horovod_tpu_torch.profiling import compile_watch
+        compile_watch.note_build(seconds, time.perf_counter() - t0)
         if errors:
             raise RuntimeError("\n".join(errors))
 

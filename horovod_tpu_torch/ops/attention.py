@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from horovod_tpu_torch.metrics import mfu
 from horovod_tpu_torch.ops import _build
 
 NEG_INF = -1e30
@@ -105,10 +106,30 @@ def flash_attn_fwd_cuda(q, k, v, causal: bool, scale: float
 flash_attn_fwd_cuda.launches = 0
 
 
+def flash_attn_fwd_flops(B: int, Sq: int, Sk: int, H: int, D: int,
+                         causal: bool) -> int:
+    """FLOPs of one forward: the products q·kᵀ and p·v, 2·D FLOPs each per
+    (query, key) pair and head, over the pairs the kernel computes — under
+    ``causal`` query row i meets keys 0..i (half the square and the
+    diagonal, as ``chip_smoke.attention_cost`` counts). What
+    :func:`horovod_tpu_torch.metrics.mfu.flops_per_step` adds for a call,
+    on the card and on the CPU alike."""
+    if causal:
+        m = min(Sq, Sk)
+        pairs = m * (m + 1) // 2 + (Sq - m) * Sk
+    else:
+        pairs = Sq * Sk
+    return 4 * B * H * D * pairs
+
+
 def _flash_fwd(q, k, v, causal: bool, scale: float):
+    B, Sq, H, D = q.shape
+    mfu.count_kernel_flops(flash_attn_fwd_flops(B, Sq, k.shape[1], H, D,
+                                                causal))
     if q.is_cuda:
         return flash_attn_fwd_cuda(q, k, v, causal, scale)
-    return plain_attention_with_lse(q, k, v, causal, scale)
+    with mfu.uncounted():
+        return plain_attention_with_lse(q, k, v, causal, scale)
 
 
 def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float):

@@ -172,7 +172,10 @@ def _gather_quantized(part: torch.Tensor, axis, quantizer) -> torch.Tensor:
 def start_preduce_quantized(x: torch.Tensor, axis, quantizer,
                             op: ReduceOp = ReduceOp.SUM) -> Pending:
     """:func:`preduce_quantized`: the exact reduce_scatter is issued here;
-    ``wait()`` quantizes, gathers and dequantizes."""
+    ``wait()`` quantizes, gathers and dequantizes. The pre/wire bytes go to
+    the compression metrics from the shapes, as the JAX
+    ``device_allreduce(compression=)`` counts them: this rank's tensor
+    before, and the ``n`` quantized slices of the gather on the wire."""
     _check_sum_average("quantized allreduce", op)
     n = axis.size
     if x.dim() == 0:
@@ -184,6 +187,9 @@ def start_preduce_quantized(x: torch.Tensor, axis, quantizer,
             f"quantized allreduce needs dim 0 ({x.shape[0]}) divisible by "
             f"the axis size ({n}); pad the tensor or use the exact path")
     scatter = start_preduce_scatter(x, axis, 0)
+    from horovod_tpu_torch.compression.metrics import record_compression
+    record_compression(quantizer.name, x.numel() * x.element_size(),
+                       quantizer.wire_bytes(x.numel() // n) * n)
 
     def finish():
         part = scatter.wait()

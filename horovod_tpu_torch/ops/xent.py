@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from horovod_tpu_torch.metrics import mfu
 from horovod_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,15 +81,27 @@ def xent_fwd_cuda(logits: torch.Tensor, labels: torch.Tensor
 xent_fwd_cuda.launches = 0
 
 
+def xent_fwd_flops(n: int, v: int) -> int:
+    """FLOPs of one forward as :func:`horovod_tpu_torch.metrics.mfu.
+    flops_per_step` counts them (products only, as ``FlopCounterMode``
+    does): none. The kernel takes each row's max, exponentials and sum of
+    the ``[n, v]`` logits and multiplies nothing; the logits product
+    before it is a ``torch.matmul``, counted where it runs."""
+    del n, v
+    return 0
+
+
 class _FusedXent(torch.autograd.Function):
     """Per-row loss with the kernel forward and the closed-form backward."""
 
     @staticmethod
     def forward(ctx, logits, labels):
+        mfu.count_kernel_flops(xent_fwd_flops(*logits.shape))
         if logits.is_cuda:
             loss, lse = xent_fwd_cuda(logits, labels)
         else:
-            loss, lse = plain_xent(logits, labels)
+            with mfu.uncounted():
+                loss, lse = plain_xent(logits, labels)
         ctx.save_for_backward(logits, labels, lse)
         return loss
 

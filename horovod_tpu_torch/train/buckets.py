@@ -9,8 +9,9 @@ a leaf larger than the budget is a bucket of its own. The budget is the
 sets it. The order of the leaves is the caller's: give the JAX flatten
 order (:func:`horovod_tpu_torch.common.tree.tree_flatten`, or names
 sorted by :func:`~horovod_tpu_torch.common.tree.jax_key`) to get the JAX
-package's plan, bucket for bucket. The plan gauges of the metrics
-registry arrive with the observability slice.
+package's plan, bucket for bucket. Every plan asked for lands on the
+``hvd_overlap_bucket_count`` and ``hvd_overlap_bucket_bytes`` gauges
+(``record_plan``).
 """
 
 from __future__ import annotations
@@ -83,10 +84,26 @@ def plan_buckets(tree: Any, bucket_bytes: Optional[int] = None,
                  reverse: bool = True) -> BucketPlan:
     """Partition the leaves of ``tree`` (tensors, in a list or nested
     mappings) into byte-budgeted buckets; only shapes and dtypes are
-    read. Cached on the leaf sizes and the budget."""
+    read. Cached on the leaf sizes and the budget. Records the plan on
+    the overlap gauges."""
     leaves, _ = tree_flatten(tree)
-    return _plan_cached(tuple(leaf_nbytes(l) for l in leaves),
+    plan = _plan_cached(tuple(leaf_nbytes(l) for l in leaves),
                         resolve_bucket_bytes(bucket_bytes), bool(reverse))
+    record_plan(plan)
+    return plan
+
+
+def record_plan(plan: BucketPlan) -> None:
+    """Surface the active plan on the registry: bucket count and total
+    payload bytes."""
+    from horovod_tpu_torch.metrics.registry import default_registry
+    reg = default_registry()
+    reg.gauge("hvd_overlap_bucket_count",
+              help="gradient buckets in the active overlap plan"
+              ).set(plan.num_buckets)
+    reg.gauge("hvd_overlap_bucket_bytes",
+              help="total gradient payload bytes in the active plan"
+              ).set(plan.total_bytes)
 
 
 def pack_dtype(leaves: Sequence[torch.Tensor], bucket: Bucket) -> torch.dtype:

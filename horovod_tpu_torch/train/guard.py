@@ -6,13 +6,14 @@ Mirrors the grad guard of ``horovod_tpu/train/guard.py``: ``GuardSpec``
 (env defaults: ``HVD_TPU_GUARD`` on, ``HVD_TPU_GUARD_MAX_NORM`` 0 = no
 cap), ``resolve_spec``, ``grads_ok``, ``guarded_apply`` and
 ``GuardedStep``, which observes each verdict one step late and counts the
-skips (``flush()`` drains the last one). One scalar, the fp32 sum of the
-squared post-sync gradients (replicated across dp, so no collective),
-decides. The JAX step selects old or new state inside the compiled
+skips (``flush()`` drains the last one) on
+``hvd_guard_skipped_steps_total`` with a ``guard_skip`` flight event, as
+the JAX ``GuardObserver`` does. One scalar, the fp32 sum of the squared
+post-sync gradients (replicated across dp, so no collective), decides. The JAX step selects old or new state inside the compiled
 program; here ``guarded_apply`` reads the verdict on the host before
 calling the optimizer, one device sync a step. The chaos seam, anomaly
-escalation, ``param_digest`` and ``ReplicaCanary`` arrive with later
-slices.
+escalation (``grad_nonfinite`` findings), ``param_digest`` and
+``ReplicaCanary`` arrive with later slices.
 """
 
 from __future__ import annotations
@@ -90,12 +91,14 @@ class GuardedStep:
     """The step a guarded factory returns: ``fn(model, optimizer, batch)
     -> (model, optimizer, loss, ok)`` called as ``step(model, optimizer,
     batch) -> (model, optimizer, loss)``, each verdict observed at the
-    next call or at :meth:`flush`. ``skipped`` counts the skipped steps."""
+    next call or at :meth:`flush`. ``skipped`` counts the skipped steps,
+    ``consecutive`` the skips in a row."""
 
     def __init__(self, fn, spec: GuardSpec) -> None:
         self._fn = fn
         self.guard_spec = spec
         self.skipped = 0
+        self.consecutive = 0
         self._step = 0
         self._pending: Optional[Tuple[int, bool]] = None
 
@@ -112,7 +115,22 @@ class GuardedStep:
             return
         step, ok = self._pending
         self._pending = None
-        if not ok:
-            self.skipped += 1
-            log.warning("guard: skipped step %d (non-finite or over-norm "
-                        "gradients)", step)
+        if ok:
+            self.consecutive = 0
+            return
+        self.skipped += 1
+        self.consecutive += 1
+        try:
+            from horovod_tpu_torch.metrics.registry import default_registry
+            default_registry().counter(
+                "hvd_guard_skipped_steps_total",
+                help="train steps skipped by the numeric guardrail "
+                     "(non-finite or over-norm gradients; parameters "
+                     "and optimizer state kept)").inc()
+        except Exception:
+            pass
+        from horovod_tpu_torch.diagnostics.flight_recorder import record_event
+        record_event("guard_skip", step=int(step),
+                     consecutive=self.consecutive)
+        log.warning("guard: skipped step %d (non-finite or over-norm "
+                    "gradients; %d consecutive)", step, self.consecutive)

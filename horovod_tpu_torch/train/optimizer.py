@@ -27,6 +27,9 @@ Regimes of the gradient sync, as in the JAX package:
   wire dtype; quantizers follow ``quantized_grouped_allreduce``: every rank
   quantizes each of its gradients, codes and scales are all-gathered, and
   each rank dequantizes every contribution and sums them in rank order.
+  Each sync's seconds blocked on the wire and its wall seconds land on
+  ``hvd_overlap_exposed_comm_seconds`` and ``hvd_overlap_sync_seconds``,
+  a quantized bucket's bytes on the compression metrics.
 * **one process**: the sync is the identity (``LocalBackend``'s scaled
   identity).
 
@@ -42,6 +45,7 @@ launch no collective before the k-th pass.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -54,6 +58,7 @@ from horovod_tpu_torch.common.tree import jax_key, tree_flatten
 from horovod_tpu_torch.compression import Compression, Compressor
 from horovod_tpu_torch.compression.error_feedback import (ErrorFeedback,
                                                           ef_apply_one)
+from horovod_tpu_torch.compression.metrics import record_compression
 from horovod_tpu_torch.compression.quantizers import Quantized, Quantizer
 from horovod_tpu_torch.ops.mesh_collectives import (Pending, _gathered,
                                                     start_preduce)
@@ -95,7 +100,8 @@ def _start_eager_bucket(vals: List[torch.Tensor], op: ReduceOp,
                         process_set: ProcessSet, compression: Compressor,
                         prescale: float, postscale: float) -> Pending:
     """Issue one bucket of the eager sync; ``wait()`` gives the reduced
-    leaves in ``vals`` order."""
+    leaves in ``vals`` order. A quantized bucket's pre/wire bytes go to the
+    compression metrics, as ``quantized_grouped_allreduce`` counts them."""
     axis = _set_axis(process_set)
     if isinstance(compression, Quantizer):
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
@@ -104,10 +110,14 @@ def _start_eager_bucket(vals: List[torch.Tensor], op: ReduceOp,
         if prescale != 1.0:
             vals = [v * prescale for v in vals]
         entries = []
+        pre_bytes = wire_bytes = 0
         for v in vals:
             q, spec = compression.quantize(v)
+            pre_bytes += v.numel() * v.element_size()
+            wire_bytes += q.wire_bytes
             entries.append((_gathered(q.values, axis),
                             _gathered(q.scales, axis), spec, v.dtype))
+        record_compression(compression.name, pre_bytes, wire_bytes)
 
         def finish_quantized():
             outs = []
@@ -143,22 +153,78 @@ def _start_eager_bucket(vals: List[torch.Tensor], op: ReduceOp,
     return Pending(None, finish)
 
 
+def _record_sync_timing(exposed_s: float, total_s: float,
+                        n_buckets: int) -> None:
+    """Overlap efficiency on the registry, as the JAX eager sync records
+    it: how much of the gradient sync was spent BLOCKED on the wire
+    (exposed) vs overlapped with local work."""
+    from horovod_tpu_torch.metrics.registry import default_registry
+    reg = default_registry()
+    reg.gauge("hvd_overlap_exposed_comm_seconds",
+              help="seconds blocked on collective completion in the last "
+              "gradient sync").set(exposed_s)
+    reg.gauge("hvd_overlap_sync_seconds",
+              help="wall seconds of the last eager gradient sync"
+              ).set(total_s)
+    reg.counter("hvd_overlap_exposed_comm_seconds_total",
+                help="cumulative exposed-communication seconds"
+                ).inc(exposed_s)
+    reg.gauge("hvd_overlap_bucket_count",
+              help="gradient buckets in the active overlap plan"
+              ).set(n_buckets)
+
+
+def _settle(t: torch.Tensor) -> None:
+    """Block the host until the caller's stream has run all it was given
+    so far (nothing to wait for on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def _wait_buckets(plan: BucketPlan, pending: Sequence[Pending], t0: float,
+                  like: torch.Tensor) -> List[list]:
+    """Wait for every bucket of the eager sync (begun at ``t0``) and
+    record the sync timing; returns each bucket's reduced leaves.
+
+    Exposed seconds are the host's seconds blocked in the buckets' waits
+    after all local work. On the card ``Work.wait()`` only makes the
+    caller's stream wait for the collective and returns at once, so the
+    port settles the stream: first once before the waits (the backward
+    and the codec queued so far are done; ``like`` names the device), then
+    after each wait, so a bucket's seconds end when its reduced gradients
+    exist on the card, not when its collective was queued."""
+    _settle(like)
+    exposed, outs = 0.0, []
+    for p in pending:
+        tw = time.perf_counter()
+        out = p.wait()
+        if out:
+            _settle(out[0])
+        exposed += time.perf_counter() - tw
+        outs.append(out)
+    _record_sync_timing(exposed, time.perf_counter() - t0, plan.num_buckets)
+    return outs
+
+
 def _eager_allreduce_tree(grads, op: ReduceOp, process_set: ProcessSet,
                           compression: Compressor, prescale: float,
                           postscale: float, bucket_bytes=None):
     """Bucketed eager allreduce of a gradient tree (tensors in a list or
     nested mappings, bucketed in JAX flatten order): every bucket is
-    issued before the first is waited on."""
+    issued before the first is waited on; the exposed and total seconds
+    land on the overlap metrics (:func:`_wait_buckets`)."""
     leaves, unflatten = tree_flatten(grads)
     if not leaves:
         return grads
     plan = _eager_plan(leaves, bucket_bytes)
+    t0 = time.perf_counter()
     pending = [_start_eager_bucket([leaves[i] for i in b.indices], op,
                                    process_set, compression, prescale,
                                    postscale) for b in plan.buckets]
     out: list = [None] * len(leaves)
-    for bucket, p in zip(plan.buckets, pending):
-        for i, r in zip(bucket.indices, p.wait()):
+    for bucket, reduced in zip(plan.buckets,
+                               _wait_buckets(plan, pending, t0, leaves[0])):
+        for i, r in zip(bucket.indices, reduced):
             out[i] = r
     return unflatten(out)
 
@@ -255,6 +321,8 @@ class _DistributedMixin:
         return g
 
     def _hvd_launch(self, b: int) -> None:
+        if not self._hvd_pending:
+            self._hvd_sync_t0 = time.perf_counter()   # the sync begins
         bucket = self._hvd_plan.buckets[b]
         vals = [self._hvd_prepared(i) for i in bucket.indices]
         self._hvd_pending[b] = _start_eager_bucket(
@@ -272,9 +340,12 @@ class _DistributedMixin:
                     self._hvd_launch(b)
             else:
                 self._hvd_hooks.launch_rest()
-            for b, bucket in enumerate(self._hvd_plan.buckets):
-                for i, g in zip(bucket.indices,
-                                self._hvd_pending.pop(b).wait()):
+            plan = self._hvd_plan
+            pending = [self._hvd_pending.pop(b)
+                       for b in range(plan.num_buckets)]
+            for bucket, reduced in zip(plan.buckets, _wait_buckets(
+                    plan, pending, self._hvd_sync_t0, params[0])):
+                for i, g in zip(bucket.indices, reduced):
                     params[i].grad = g
             return
         pairs = [(i, self._hvd_prepared(i)) for i in range(len(params))]

@@ -359,3 +359,72 @@ def test_overlap_engine_on_the_card_matches_the_cpu(nccl_mesh):
     for n, g in got.items():
         assert g.is_cuda
         assert float((g.cpu() - want[n]).abs().max()) <= 1e-5, n
+
+
+# -- the observability plane on the card ---------------------------------------
+
+def test_eager_sync_exposed_seconds_on_nccl_world_of_one(nccl_mesh):
+    """The eager bucketed sync over NCCL: the seconds blocked on the wire
+    are positive (the host waits for the collectives to end on the card,
+    not for their queueing) and no more than the sync's wall seconds; the
+    int8 bytes are each leaf's codes and scales."""
+    from horovod_tpu_torch.common.process_sets import global_process_set
+    from horovod_tpu_torch.compression import BlockInt8Quantizer, Compression
+    from horovod_tpu_torch.metrics.registry import default_registry
+    from horovod_tpu_torch.ops.reduce_op import Average
+    from horovod_tpu_torch.train.optimizer import _eager_allreduce_tree
+    d = torch.device("cuda", 0)
+    reg = default_registry()
+    grads = {"a": _rand(d, 4096, 1024, seed=40), "b": _rand(d, 3000, seed=41)}
+    for codec in (Compression.none, BlockInt8Quantizer(256)):
+        out = _eager_allreduce_tree(grads, Average, global_process_set, codec,
+                                    1.0, 1.0, bucket_bytes=1 << 20)
+        exposed = reg.get("hvd_overlap_exposed_comm_seconds").value
+        sync = reg.get("hvd_overlap_sync_seconds").value
+        assert 0.0 < exposed <= sync
+        assert reg.get("hvd_overlap_bucket_count").value == 2
+        for k, g in grads.items():
+            want = g if codec is Compression.none else codec.qdq(g)
+            assert float((out[k] - want).abs().max()) <= 1e-6, k
+    pre = reg.get("hvd_compression_pre_bytes_total", {"codec": "int8"})
+    wire = reg.get("hvd_compression_wire_bytes_total", {"codec": "int8"})
+    assert pre.value >= 4 * (4096 * 1024 + 3000)
+    assert wire.value >= 4096 * 1024 // 256 * 260 + 12 * 260
+
+
+def test_profile_capture_names_the_hand_written_kernels(dev, tmp_path,
+                                                        monkeypatch):
+    """A one-step capture window around the flagship's two forward kernels:
+    its Chrome trace names both as device kernels."""
+    import json
+    import os
+
+    from horovod_tpu_torch.profiling.manager import ProfileManager
+    monkeypatch.setenv("HVD_TPU_PROFILE_DIR", str(tmp_path))
+    mgr = ProfileManager()
+    plan = mgr.request_capture(steps=1, reason="test")
+    q, k, v = (_rand(dev, 2, 256, 8, 64, dtype=BF, seed=s) for s in (1, 2, 3))
+    logits = _rand(dev, 512, 32000, dtype=BF, seed=4)
+    labels = torch.randint(0, 32000, (512,), device=dev)
+    mgr.on_step_begin(1)
+    attention.flash_attn_fwd_cuda(q, k, v, True, 0.125)
+    xent.xent_fwd_cuda(logits, labels)
+    mgr.on_step_end(1)
+    rec = mgr.recent_captures()[-1]
+    assert rec["path"] == plan["path"] and rec["bytes"] > 0
+    with open(os.path.join(rec["path"], "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    assert any("flash_fwd_kernel" in n for n in names), sorted(names)[:20]
+    assert any("xent_fwd_kernel" in n for n in names), sorted(names)[:20]
+
+
+def test_memory_gauges_read_the_card(dev):
+    """The sampler's stats are the card's allocator under the JAX
+    package's keys."""
+    from horovod_tpu_torch.profiling import memory
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    (st,) = memory.device_stats()
+    assert st["bytes_in_use"] >= x.numel()
+    assert 0 < st["peak_bytes_in_use"] <= st["bytes_limit"]
+    assert st["bytes_limit"] == torch.cuda.mem_get_info(dev)[1]

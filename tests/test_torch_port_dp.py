@@ -13,8 +13,9 @@ devices. Each case is its own test.
 
 This file holds the worker of every group (``collectives`` and ``hier``
 serve ``tests/test_torch_port_collectives.py``, ``init`` the isolation
-test) and the tests of the ``dp`` group: the overlap engine's pipelined
-accumulation and trajectories (``tests/test_overlap.py``), the guard, the
+test, ``metrics`` ``tests/test_torch_port_metrics.py``) and the tests of
+the ``dp`` group: the overlap engine's pipelined accumulation and
+trajectories (``tests/test_overlap.py``), the guard, the
 eager ``DistributedOptimizer`` (plain, fp16, int8, EF, pre/postscale,
 ``backward_passes_per_step``), the broadcasts, the fused optimizers'
 multi-device regimes (``tests/test_fused_apply.py``) and the tiny flagship
@@ -198,6 +199,15 @@ def eager_grads(rank, passes):
 
 
 FLAGSHIP_B, FLAGSHIP_S, FLAGSHIP_STEPS = 4, 64, 3
+
+
+def metric_inputs():
+    """Per-rank tensors ``[2, ...]`` of the quantized mesh path's byte
+    counters (``tests/test_torch_port_metrics.py``): a block multiple, a
+    2-D tensor, and a slice that pads its last block."""
+    rng = np.random.RandomState(9)
+    return [rng.randn(2, *s).astype(np.float32)
+            for s in ((1024,), (4, 300), (518,))]
 
 
 def flagship_batch(vocab):
@@ -550,6 +560,53 @@ def _w_dp():
     return out
 
 
+def _w_metrics():
+    """The compression byte counters of ``preduce_quantized`` (int8,
+    average) per tensor of :func:`metric_inputs`, then one eager int8
+    ``DistributedOptimizer`` step over :func:`param_tree` gradients: its
+    byte counters and sync gauges."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+    from horovod_tpu_torch.metrics.registry import default_registry
+    from horovod_tpu_torch.ops import mesh_collectives as mc
+    from horovod_tpu_torch.ops.reduce_op import ReduceOp
+
+    ax = hvd.build_mesh(dp=2).axis("dp")
+    r = ax.index
+    reg = default_registry()
+    out = {}
+    for i, x in enumerate(metric_inputs()):
+        reg.clear()
+        mc.preduce_quantized(_t(x[r]), ax, _int8(), ReduceOp.AVERAGE)
+        for kind in ("pre_bytes_total", "wire_bytes_total", "ratio"):
+            inst = reg.get(f"hvd_compression_{kind}", {"codec": "int8"})
+            out[f"mesh{i}_{kind}"] = np.array(inst.value)
+    reg.clear()
+    params = {k: torch.nn.Parameter(_t(v)) for k, v in
+              param_tree(np.random.RandomState(5)).items()}
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(params.values(), lr=0.1),
+                                   named_parameters=params.items(),
+                                   compression=_int8())
+    for k, g in param_tree(np.random.RandomState(100)).items():
+        params[k].grad = _t(g)
+    opt.step()
+    snap = reg.snapshot()
+    for key, name in (
+            ('hvd_compression_pre_bytes_total{codec="int8"}',
+             "eager_pre_bytes_total"),
+            ('hvd_compression_wire_bytes_total{codec="int8"}',
+             "eager_wire_bytes_total"),
+            ("hvd_overlap_exposed_comm_seconds", "eager_exposed"),
+            ("hvd_overlap_sync_seconds", "eager_sync"),
+            ("hvd_overlap_bucket_count", "eager_bucket_count")):
+        out[name] = np.array(snap[key]["value"])
+    out["codec_events"] = np.array(sum(
+        e["kind"] == "codec_choice" for e in recorder().events()))
+    return out
+
+
 def _w_init():
     import torch.distributed as dist
 
@@ -566,7 +623,7 @@ def _w_init():
 
 
 WORKERS = {"collectives": _w_collectives, "hier": _w_hier, "dp": _w_dp,
-           "init": _w_init}
+           "init": _w_init, "metrics": _w_metrics}
 # results that pass through the int8 codec may differ by one code when the
 # sums before it differ in the last bit (another reduction order)
 _CODEC_KEYS = ("quantized", "int8", "hierq", "fused")
