@@ -86,6 +86,44 @@ process-wide observability state reset before each:
   ``DistributedOptimizer`` is read from ``[dp_gloo_2rank]``, whose ranks
   run three eager int8 steps too (an eager sync needs a world of two).
 
+The tensor, sequence and expert slice adds four phases:
+
+* ``[guard]``: guarded AdamW steps (``GuardedStep`` over
+  ``guarded_apply``) of a small model with a NaN batch between two clean
+  ones, under ``torch.cuda.set_sync_debug_mode("error")``: the poisoned
+  step is skipped and the state ends bit-equal to two clean steps.
+  ``[dp_nccl]``'s guarded overlap steps run under the same mode.
+* ``[tp_sp]``: the dense flagship on ``{sp:2, tp:2}``; ``[moe_ep_sp]``:
+  with 4 experts, top-2, capacity 1.25 on ``{ep:2, sp:2}``. Each is a
+  4-rank gloo world on ``cuda:0`` (``--gloo-rank DIR ROLE``, killed at
+  ``GLOO_TIMEOUT_S``) at full width, 3 AdamW steps of
+  ``make_train_step(cfg, mesh)`` from the seed-0 weights sliced for each
+  rank. Checks: every rank reports the same loss each step; step 1's loss
+  within LAYOUT_LOSS_TOL of the layout's fp32 loss on the CPU (plain
+  versions); the loss falls; replicated leaves bit-identical across the
+  ranks that hold them after the last step; step 1's gradient computed
+  with fp32 on the ranks within LAYOUT_FP32_GRAD_TOL (rel L2, per leaf)
+  of the one-process fp32 gradient on the card, sliced (for MoE the
+  grouped reference: each layout group of tokens gated on its own), and
+  the bf16 one within LAYOUT_GRAD_TOL for the dense layout; for MoE,
+  whose bf16 router sends some tokens to other experts than fp32 does,
+  within LAYOUT_MOE_FLOOR_RATIO floors of fp32 and LAYOUT_MOE_PAIR_RATIO
+  floors of the one-process bf16 grouped gradient (a floor: that one
+  against fp32, per leaf); per rank, ``flash_attn_fwd`` launched
+  ``L x steps x (sp position + 1)`` times (the causal ring skips later
+  blocks) and ``xent_fwd`` once a step where tp is 1; the inputs of each
+  rank's first bf16 launch of each ring kind (own block diagonal-causal,
+  earlier block full) and of ``xent_fwd``, taken in step 1, run again
+  through the kernel and its plain version after the counted steps
+  (LAYOUT_FLASH_O_TOL/LSE_TOL, LAYOUT_XENT_TOL), both ring kinds covered
+  across the ranks.
+* ``[ulysses]``: in the ``[tp_sp]`` world, one forward and backward of
+  ``ulysses_attention_spmd`` at ULYSSES_SHAPE bf16 over sp = 2 against the
+  plain attention in fp32 (output and gradients within ULYSSES_TOL), one
+  kernel launch a rank.
+gloo's send/recv cannot take CUDA tensors (the ring's exchanges go through
+the host, ``mesh_collectives.GLOO_HOST_STAGED``, printed on each line).
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -94,6 +132,7 @@ power limit, a JSON line with each kernel's numbers, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -138,6 +177,43 @@ OBSERVED_STEPS = 3        # [telemetry_fused_adam], [telemetry_dp_int8]
 # the card's FLOP count of a step against the CPU's: both add the same
 # kernel formulas to FlopCounterMode's count, so they should be equal
 FLOPS_TOL = 1e-3
+# the tensor/sequence/expert slice: 4-rank gloo worlds on cuda:0 at the
+# flagship's full width, 3 AdamW steps each; (moe, mesh sizes)
+LAYOUT_PHASES = {"tp_sp": (False, {"sp": 2, "tp": 2}),
+                 "moe_ep_sp": (True, {"ep": 2, "sp": 2})}
+LAYOUT_STEPS = 3
+# step 1's bf16 loss against the fp32 CPU loss of the layout, relative
+# (2.3e-5 to 2.5e-5 on an H100: at init the loss sits near ln V and moves
+# little, so the limit is tight), and each leaf's step-1 gradient against
+# the one-process fp32 gradient (rel L2): bf16 products round to 8 bits,
+# as for DP_GRAD_TOL
+LAYOUT_LOSS_TOL = 1e-3
+LAYOUT_GRAD_TOL = 2e-2
+# the same gradient computed in fp32 on the ranks (the kernels' fp32 paths)
+# against the fp32 reference: only the order of the sums differs. It is the
+# check of the MoE layout: in bf16 the router sends some tokens to other
+# experts than in fp32 (3 to 22 of 512 a group and layer, one process on an
+# H100), so bf16 MoE gradients differ from fp32 by up to 10% in one process
+# already, sharded or not; they are printed beside that one-process figure
+LAYOUT_FP32_GRAD_TOL = 1e-3
+# MoE's bf16 step-1 gradient, per leaf, in units of the floor: one
+# process's bf16 grouped gradient against the fp32 one, from the same run.
+# Against fp32, the layout may be no further than 1.5 floors (one process
+# and the layout see the same bf16 roundings and reroutings: 0.96 to 1.06
+# floors on an H100); against one process's bf16 gradient, no further
+# than the two floors that both being within a floor of fp32 allows
+LAYOUT_MOE_FLOOR_RATIO = 1.5
+LAYOUT_MOE_PAIR_RATIO = 2.0
+# the kernels on a layout rank's own inputs (its first bf16 ring blocks,
+# the own block diagonal-causal and an earlier one full, and its logits),
+# against the plain versions: o relative to its largest entry at
+# phase_flash's bf16 tolerance (a bf16 rounding is 2^-8 of a value), the
+# lse (fp32 in both) at the fp32 one, xent relative at phase_xent's
+LAYOUT_FLASH_O_TOL = 2e-2
+LAYOUT_FLASH_LSE_TOL = 1e-4
+LAYOUT_XENT_TOL = 1e-5
+ULYSSES_SHAPE = (8, 256, 8, 64)   # [B, S, H, D] bf16 over sp = 2
+ULYSSES_TOL = 2e-2                # the bf16 flash_attn_fwd tolerance above
 
 
 def check(ok: bool, msg: str) -> None:
@@ -548,10 +624,12 @@ def params_digest(model) -> str:
 
 
 def drive_dp(torch, hvd, label, mesh, cfg, init_sd, batch, counters,
-             quant, compression=None):
+             quant, compression=None, no_sync=False):
     """Five AdamW steps of the overlap engine from the seed-0 weights, the
-    counters zeroed just before and read just after. Returns (losses, step
-    1's synced gradients, launches by kernel name, median step ms)."""
+    counters zeroed just before and read just after. ``no_sync`` runs each
+    guarded step with ``torch.cuda.set_sync_debug_mode("error")``: a host
+    sync inside it raises. Returns (losses, step 1's synced gradients,
+    launches by kernel name, median step ms)."""
     from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
                                           lm_loss)
     from horovod_tpu_torch.profile_step import DP_MICRO
@@ -567,7 +645,8 @@ def drive_dp(torch, hvd, label, mesh, cfg, init_sd, batch, counters,
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, loss = step(model, opt, local)
+        with no_host_sync(torch, no_sync):
+            _, _, loss = step(model, opt, local)
         losses.append(float(loss))
         step_s.append(time.perf_counter() - t0)
         if i == 0:
@@ -579,6 +658,7 @@ def drive_dp(torch, hvd, label, mesh, cfg, init_sd, batch, counters,
                 **{k: fn.launches for k, fn in quant.items()}}
     med = sorted(step_s[1:])[(len(step_s) - 1) // 2]
     say(label, steps=TRAIN_STEPS, n_micro=DP_MICRO,
+        sync_debug_mode="error" if no_sync else "default",
         losses=",".join(f"{x:.6f}" for x in losses),
         step_ms=",".join(f"{1e3 * t:.3f}" for t in step_s),
         median_step_ms_after_warmup=1e3 * med,
@@ -590,6 +670,22 @@ def drive_dp(torch, hvd, label, mesh, cfg, init_sd, batch, counters,
     check(step.skipped == 0, f"{label}: the guard skipped a step")
     del model, opt
     return losses, grads1, launches, 1e3 * med
+
+
+class no_host_sync:
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block (when
+    ``on``): an operation that syncs the host with the card raises."""
+
+    def __init__(self, torch, on: bool = True):
+        self.torch, self.on = torch, on
+
+    def __enter__(self):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode("default")
 
 
 def reset_observability() -> None:
@@ -848,7 +944,8 @@ def phase_dp_nccl(torch, cfg, init_sd, batch, train_losses, counters,
     out = {}
 
     losses, grads1, out["dp_nccl"], _ = drive_dp(
-        torch, hvd, "dp_nccl", mesh, cfg, init_sd, batch, counters, quant)
+        torch, hvd, "dp_nccl", mesh, cfg, init_sd, batch, counters, quant,
+        no_sync=True)
     errs = grad_errors(grads1, ref_grads)
     worst = max(errs, key=lambda k: errs[k][0])
     rel = abs(losses[0] - train_losses[0]) / abs(train_losses[0])
@@ -975,16 +1072,17 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_gloo_ranks(torch, out_dir: str):
-    """Start the two ranks of [dp_gloo_2rank] with a timeout, kill their
-    process groups on the way out, and return each rank's results and step
-    1's synced gradients from the files they wrote in ``out_dir``."""
+def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str) -> None:
+    """Start ``n`` ranks of this script (``--gloo-rank DIR ROLE``), gloo
+    world, all on ``cuda:0`` as one-card hosts, with a timeout; kill their
+    process groups on the way out, and fail ``label`` if a rank did. The
+    ranks write their results to ``out_dir``."""
     port = _free_port()
     procs, logs = [], []
-    for r in range(2):
-        env = dict(os.environ, HVD_TPU_RANK=str(r), HVD_TPU_SIZE="2",
+    for r in range(n):
+        env = dict(os.environ, HVD_TPU_RANK=str(r), HVD_TPU_SIZE=str(n),
                    HVD_TPU_LOCAL_RANK="0", HVD_TPU_LOCAL_SIZE="1",
-                   HVD_TPU_CROSS_RANK=str(r), HVD_TPU_CROSS_SIZE="2",
+                   HVD_TPU_CROSS_RANK=str(r), HVD_TPU_CROSS_SIZE=str(n),
                    HOROVOD_TPU_OPERATIONS="GLOO",
                    HVD_TPU_RENDEZVOUS_ADDR="127.0.0.1",
                    HVD_TPU_RENDEZVOUS_PORT=str(port),
@@ -993,7 +1091,7 @@ def _run_gloo_ranks(torch, out_dir: str):
         logs.append(log)
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--gloo-rank",
-             out_dir], env=env, stdout=log, stderr=subprocess.STDOUT,
+             out_dir, role], env=env, stdout=log, stderr=subprocess.STDOUT,
             start_new_session=True))
     t0 = time.perf_counter()
     try:
@@ -1013,15 +1111,8 @@ def _run_gloo_ranks(torch, out_dir: str):
         texts.append(log.read())
         log.close()
     for r, (p, text) in enumerate(zip(procs, texts)):
-        check(p.returncode == 0, f"dp_gloo_2rank: rank {r} exited "
+        check(p.returncode == 0, f"{label}: rank {r} exited "
                                  f"{p.returncode}:\n{text[-6000:]}")
-    res = []
-    for r in range(2):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            res.append(json.load(f))
-    grads = [torch.load(os.path.join(out_dir, f"grads{r}.pt"))
-             for r in range(2)]
-    return res, grads
 
 
 def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
@@ -1031,7 +1122,13 @@ def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
     checked here and printed)."""
     from horovod_tpu_torch.profile_step import DP_MICRO
     with tempfile.TemporaryDirectory(prefix="dp_gloo_") as out_dir:
-        res, grads = _run_gloo_ranks(torch, out_dir)
+        _run_gloo_ranks(out_dir, 2, "dp", "dp_gloo_2rank")
+        res = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        grads = [torch.load(os.path.join(out_dir, f"grads{r}.pt"))
+                 for r in range(2)]
     ref = {k: v.cpu() for k, v in ref_grads.items()}
     errs = grad_errors(grads[0], ref)
     worst = max(errs, key=lambda k: errs[k][0])
@@ -1110,6 +1207,515 @@ def phase_dp_gloo(torch, ref_grads, n_buckets, n_layers):
     return {"dp_gloo_2rank": {k: res[0]["train_launches"].get(k, 0)
                               + res[0]["overlap_int8_launches"][k]
                               for k in want_int8}}
+
+
+def phase_guard(torch, dev):
+    """[guard]: guarded AdamW steps of a small model on the card, with a
+    NaN batch between two clean ones, every step under the no-host-sync
+    mode; the poisoned step is skipped (read one step late), and the
+    parameters and optimizer state end bit-equal to two clean steps."""
+    from horovod_tpu_torch.models import adamw
+    from horovod_tpu_torch.train.guard import (GuardedStep, GuardSpec,
+                                               guarded_apply)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(64, 256, generator=g, device=dev)
+
+    def run(batches):
+        torch.manual_seed(0)
+        lin = torch.nn.Linear(256, 256).to(dev)
+        opt = adamw(lin.parameters())
+
+        def fn(m, o, b):
+            o.zero_grad(set_to_none=True)
+            loss = m(b).square().mean()
+            loss.backward()
+            return m, o, loss.detach(), guarded_apply(o, GuardSpec())
+
+        step = GuardedStep(fn, GuardSpec())
+        for b in batches:
+            with no_host_sync(torch):
+                step(lin, opt, b)
+        step.flush()
+        return lin, opt, step.skipped
+
+    lin_a, opt_a, skipped = run([x, x * float("nan"), x])
+    lin_b, opt_b, skipped_b = run([x, x])
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(lin_a.parameters(), lin_b.parameters()))
+    same_state = all(
+        torch.equal(torch.as_tensor(opt_a.state[a][k]),
+                    torch.as_tensor(opt_b.state[b][k]))
+        for a, b in zip(lin_a.parameters(), lin_b.parameters())
+        for k in opt_b.state[b])
+    say("guard", steps=3, poisoned_step=1, skipped=skipped,
+        sync_debug_mode="error", same_params_as_clean_run=same_params,
+        same_optimizer_state=same_state)
+    check(skipped == 1 and skipped_b == 0,
+          f"guard: skipped {skipped} (clean run {skipped_b}), expected 1")
+    check(same_params and same_state,
+          "guard: the skipped step changed the parameters or the state")
+
+
+def layout_cfg(moe: bool):
+    """The flagship at full width; with 4 experts, top-2, capacity 1.25
+    (the dry run's MoE config) for an MoE phase."""
+    from horovod_tpu_torch.entry import _flagship_cfg
+    cfg = _flagship_cfg()
+    return dataclasses.replace(cfg, n_experts=4) if moe else cfg
+
+
+def flagship_batch(cfg):
+    """The seed-1 batch of ``entry()``: B 8 at ``max_seq``, int64."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.entry import BATCH
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, cfg.vocab_size, (BATCH, cfg.max_seq))
+    return (torch.from_numpy(tokens).long(),
+            torch.from_numpy(np.roll(tokens, -1, 1)).long())
+
+
+def ulysses_rank_check(torch, mesh, dev) -> dict:
+    """[ulysses] on this rank: one forward and backward of
+    ``ulysses_attention_spmd`` over sp at ULYSSES_SHAPE bf16, held to the
+    plain attention in fp32 on the card (its block of the output, and of
+    the gradients of ``sum(o * w)``)."""
+    from horovod_tpu_torch.ops import attention
+    from horovod_tpu_torch.parallel.ring_attention import _plain_attention
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention_spmd
+    sp = mesh.axis("sp")
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(*ULYSSES_SHAPE, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    w = torch.randn(*ULYSSES_SHAPE, generator=g, device=dev)
+    n = ULYSSES_SHAPE[1] // sp.size
+    blk = slice(sp.index * n, (sp.index + 1) * n)
+    local = [x[:, blk].clone().requires_grad_() for x in (q, k, v)]
+    before = attention.flash_attn_fwd_cuda.launches
+    o = ulysses_attention_spmd(*local, sp, causal=True)
+    (o.float() * w[:, blk]).sum().backward()
+    launches = attention.flash_attn_fwd_cuda.launches - before
+    full = [x.float().requires_grad_() for x in (q, k, v)]
+    ref = _plain_attention(*full, causal=True)
+    (ref * w).sum().backward()
+    torch.cuda.synchronize()
+    return {"max_abs_err_o": max_err(o, ref[:, blk]),
+            "grad_rel_l2": {c: rel_l2(a.grad, b.grad[:, blk])
+                            for c, a, b in zip("qkv", local, full)},
+            "launches": launches}
+
+
+class record_kernel_inputs:
+    """Inside the block, the first bf16 ``flash_attn_fwd`` launch of each
+    ring kind (``ring_diag``: causal, the rank's own block; ``ring_full``:
+    an earlier block) and the first ``xent_fwd`` launch keep a copy of
+    their inputs in ``out``. The launch itself is the kernel's, counted as
+    before."""
+
+    def __init__(self, out: dict):
+        self.out = out
+
+    def __enter__(self):
+        import torch
+        from horovod_tpu_torch.ops import attention, xent
+        self.mods = (attention, xent)
+        self.real = (attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda)
+        real_attn, real_xent = self.real
+
+        def attn(q, k, v, causal, scale):
+            key = "ring_diag" if causal else "ring_full"
+            if q.dtype == torch.bfloat16 and key not in self.out:
+                self.out[key] = tuple(t.detach().clone() for t in (q, k, v)) \
+                    + (causal, scale)
+            return real_attn(q, k, v, causal, scale)
+
+        def xe(logits, labels):
+            if "xent" not in self.out:
+                self.out["xent"] = (logits.detach().clone(), labels.clone())
+            return real_xent(logits, labels)
+
+        # a wrapper counts on the function its module's name holds: the
+        # spies carry the counts in and out
+        attn.launches, xe.launches = real_attn.launches, real_xent.launches
+        attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda = attn, xe
+
+    def __exit__(self, *exc):
+        attention, xent = self.mods
+        real_attn, real_xent = self.real
+        real_attn.launches = attention.flash_attn_fwd_cuda.launches
+        real_xent.launches = xent.xent_fwd_cuda.launches
+        attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda = self.real
+
+
+def kernels_on_rank_inputs(torch, recorded: dict) -> dict:
+    """Each recorded launch run again through the kernel's wrapper and its
+    plain version on the same inputs: the errors and their limits."""
+    from horovod_tpu_torch.ops import attention, xent
+    out = {}
+    for key, rec in recorded.items():
+        if key == "xent":
+            logits, labels = rec
+            loss, lse = xent.xent_fwd_cuda(logits, labels)
+            loss_ref, lse_ref = xent.plain_xent(logits, labels)
+            rel = float(torch.maximum(
+                ((loss - loss_ref).abs()
+                 / loss_ref.abs().clamp_min(1e-6)).max(),
+                ((lse - lse_ref).abs() / lse_ref.abs()).max()))
+            out[key] = {"shape": "x".join(map(str, logits.shape)),
+                        "max_rel_err": rel, "ok": rel <= LAYOUT_XENT_TOL}
+            continue
+        q, k, v, causal, scale = rec
+        o, lse = attention.flash_attn_fwd_cuda(q, k, v, causal, scale)
+        o_ref, lse_ref = attention.plain_attention_with_lse(q, k, v, causal,
+                                                            scale)
+        e_o = max_err(o, o_ref) / float(o_ref.float().abs().max())
+        e_lse = max_err(lse, lse_ref)
+        out[key] = {"shape": "x".join(map(str, q.shape)), "causal": causal,
+                    "max_rel_err_o": e_o, "max_abs_err_lse": e_lse,
+                    "ok": e_o <= LAYOUT_FLASH_O_TOL
+                    and e_lse <= LAYOUT_FLASH_LSE_TOL}
+    torch.cuda.synchronize()
+    return out
+
+
+def layout_rank_main(out_dir: str, role: str) -> int:
+    """One rank of a layout phase (``LAYOUT_PHASES[role]``): the seed-0
+    weights sliced for this rank and the seed-1 batch sharded; the
+    layout's fp32 loss on the CPU (plain versions); LAYOUT_STEPS AdamW
+    steps of ``make_train_step(cfg, mesh)`` on the card with the kernel
+    counters zeroed just before and read just after; step 1's synced
+    gradients to ``grads<r>.pt``; losses, step ms, launches, this rank's
+    mesh coordinates and a digest of each leaf after the last step to
+    ``rank<r>.json``; before the steps, the same gradient with fp32
+    compute on the card to ``grads32_<r>.pt``; the inputs of step 1's
+    first kernel launches, run again through the kernels and their plain
+    versions after the counted steps. The [tp_sp] ranks then run
+    [ulysses]."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (Transformer, adamw,
+                                          forward_loss_spmd, init_opt_state,
+                                          init_params, make_grad_fn,
+                                          make_train_step, shard_params)
+    from horovod_tpu_torch.ops import attention, mesh_collectives, xent
+    from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r = hvd.rank()
+    moe, sizes = LAYOUT_PHASES[role]
+    cfg = layout_cfg(moe)
+    mesh = hvd.build_mesh(**sizes)
+    dev = hvd.device()
+    sd = shard_params(init_params(np.random.RandomState(0), cfg), cfg, mesh)
+    tok, tgt = hvd.shard_batch(*flagship_batch(cfg), mesh)
+
+    cpu_model = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
+                            "cpu", mesh)
+    cpu_model.load_state_dict(sd)
+    with torch.no_grad():
+        cpu_loss, cpu_aux = forward_loss_spmd(cpu_model, tok, tgt, mesh)
+    del cpu_model
+
+    tok, tgt = tok.to(dev), tgt.to(dev)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = Transformer(cfg32, dev, mesh)
+    model.load_state_dict(sd)
+    _, _, grads32 = make_grad_fn(cfg32, mesh)(model, tok, tgt)
+    torch.save({k: g.cpu() for k, g in grads32.items()},
+               os.path.join(out_dir, f"grads32_{r}.pt"))
+    del model, grads32
+
+    model = Transformer(cfg, dev, mesh)
+    model.load_state_dict(sd)
+    opt = init_opt_state(adamw, model)
+    step = make_train_step(cfg, mesh)
+    counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
+                "xent_fwd": xent.xent_fwd_cuda}
+    for c in counters.values():
+        c.launches = 0
+    losses, ms, recorded = [], [], {}
+    for i in range(LAYOUT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (record_kernel_inputs(recorded) if i == 0
+              else contextlib.nullcontext()):
+            _, _, loss, _ = step(model, opt, tok, tgt)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            torch.save({k: p.grad.detach().float().cpu()
+                        for k, p in model.named_parameters()},
+                       os.path.join(out_dir, f"grads{r}.pt"))
+    res = {"rank": r, "losses": losses, "step_ms": ms,
+           "cpu_loss": float(cpu_loss), "cpu_aux": float(cpu_aux),
+           "launches": {k: c.launches for k, c in counters.items()},
+           "kernel_checks": kernels_on_rank_inputs(torch, recorded),
+           "coords": {a: mesh.axis(a).index for a in AXIS_ORDER},
+           "digests": {k: hashlib.sha256(p.detach().cpu().numpy().tobytes())
+                       .hexdigest() for k, p in model.state_dict().items()},
+           "gloo_host_staged": list(mesh_collectives.GLOO_HOST_STAGED)}
+    del model, opt
+    if role == "tp_sp":
+        res["ulysses"] = ulysses_rank_check(torch, mesh, dev)
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+class grouped_moe:
+    """Inside the block, the model's MoE FFN splits its tokens into
+    ``gb x gs`` groups of batch rows and sequence blocks and gates each on
+    its own, with its own capacity, as a mesh of that many data shards
+    does; the aux loss is the groups' mean."""
+
+    def __init__(self, groups):
+        self.groups = groups
+
+    def __enter__(self):
+        import torch
+        from horovod_tpu_torch.models import transformer
+        self.mod, self.real = transformer, transformer._moe_ffn
+        gb, gs = self.groups
+
+        def grouped(p, x, cfg, axes):
+            rows, auxs = [], []
+            for xb in x.chunk(gb, 0):
+                outs = []
+                for xg in xb.chunk(gs, 1):
+                    y, aux = self.real(p, xg, cfg, axes)
+                    outs.append(y)
+                    auxs.append(aux)
+                rows.append(torch.cat(outs, 1))
+            return torch.cat(rows, 0), torch.stack(auxs).mean()
+
+        transformer._moe_ffn = grouped
+
+    def __exit__(self, *exc):
+        self.mod._moe_ffn = self.real
+
+
+def layout_reference_grads(torch, moe: bool, sizes: dict, dev,
+                           dtype) -> dict:
+    """The one-process gradient of the layout's loss on the card, with
+    ``dtype`` compute: the full model over the full batch; for MoE the
+    grouped reference (:class:`grouped_moe`), each group of tokens (batch
+    rows over dp·ep, sequence blocks over sp) gated on its own, as the
+    layout gates it."""
+    import numpy as np
+    from horovod_tpu_torch.models import (Transformer, forward_loss_spmd,
+                                          from_jax_params, init_params)
+    cfg = dataclasses.replace(layout_cfg(moe), dtype=dtype)
+    model = Transformer(cfg, dev)
+    model.load_state_dict(from_jax_params(init_params(
+        np.random.RandomState(0), cfg)))
+    tok, tgt = (x.to(dev) for x in flagship_batch(cfg))
+    groups = (sizes.get("dp", 1) * sizes.get("ep", 1), sizes.get("sp", 1))
+    with grouped_moe(groups):
+        loss, aux = forward_loss_spmd(model, tok, tgt, None)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss + 0.01 * aux, params)
+    return {k: g.detach().float() for k, g in zip(names, grads)}
+
+
+class record_routes:
+    """Inside the block, each MoE gating call appends which experts took
+    each token (``[G, E]`` bool) to ``out``."""
+
+    def __init__(self, out: list):
+        self.out = out
+
+    def __enter__(self):
+        from horovod_tpu_torch.parallel import moe
+        self.moe, self.real = moe, moe.top_k_gating
+
+        def spy(logits, k, capacity):
+            dispatch, combine, metrics = self.real(logits, k, capacity)
+            self.out.append((dispatch.detach().sum(-1) > 0).cpu())
+            return dispatch, combine, metrics
+
+        moe.top_k_gating = spy
+
+    def __exit__(self, *exc):
+        self.moe.top_k_gating = self.real
+
+
+def _slice_for(t, key, cfg, sizes, coords):
+    """The block of a full leaf that the rank at ``coords`` holds."""
+    from types import SimpleNamespace
+    from horovod_tpu_torch.models import param_shardings
+    from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
+    mesh = SimpleNamespace(shape={a: sizes.get(a, 1) for a in AXIS_ORDER})
+    for d, a in param_shardings(cfg, mesh)[key].items():
+        n = t.shape[d] // sizes[a]
+        t = t.narrow(d, coords[a] * n, n)
+    return t
+
+
+def phase_layout(torch, role: str, card: str, dev) -> list:
+    """[tp_sp] / [moe_ep_sp] (and [ulysses] in the [tp_sp] world): the
+    ranks of LAYOUT_PHASES[role] on cuda:0 over gloo, then every check of
+    the module docstring. Returns each rank's kernel launches."""
+    from horovod_tpu_torch.models import param_shardings
+    from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
+    moe, sizes = LAYOUT_PHASES[role]
+    n = math.prod(sizes.values())
+    cfg = layout_cfg(moe)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=f"{role}_") as out_dir:
+        _run_gloo_ranks(out_dir, n, role, role)
+        res, grads, grads32 = [], [], []
+        for r in range(n):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+            grads.append(torch.load(os.path.join(out_dir, f"grads{r}.pt")))
+            grads32.append(torch.load(os.path.join(out_dir,
+                                                   f"grads32_{r}.pt")))
+    world_s = time.perf_counter() - t0
+    routes32, routes16 = [], []
+    with record_routes(routes32):
+        ref = layout_reference_grads(torch, moe, sizes, dev, torch.float32)
+
+    def per_leaf(rank_grads, full_grads):
+        """Each leaf's worst rel L2 over the ranks against the matching
+        slice of ``full_grads``."""
+        out = {}
+        for rr, g in zip(res, rank_grads):
+            for k, full in full_grads.items():
+                e = rel_l2(g[k], _slice_for(full, k, cfg, sizes,
+                                            rr["coords"]).cpu())
+                out[k] = max(out.get(k, 0.0), e)
+        return out
+
+    errs, errs32 = per_leaf(grads, ref), per_leaf(grads32, ref)
+    with record_routes(routes16):
+        one16 = layout_reference_grads(torch, moe, sizes, dev,
+                                       torch.bfloat16)
+    floor = {k: rel_l2(one16[k], ref[k]) for k in ref}
+    errs_pair = per_leaf(grads, one16)
+    # tokens a gating call (a group of a layer) sends to other experts in
+    # one process in bf16 than in fp32
+    rerouted = [int((a != b).any(-1).sum()) for a, b in zip(routes16,
+                                                            routes32)]
+    del ref, one16
+    # in floors: the layout's bf16 gradient against fp32, and against one
+    # process's bf16 gradient
+    floors = {k: errs[k] / floor[k] for k in floor}
+    floors_pair = {k: errs_pair[k] / floor[k] for k in floor}
+    worst = max(errs, key=errs.get)
+    worst32 = max(errs32, key=errs32.get)
+
+    def fmt(d):
+        return ",".join(f"{k.split('.')[-1]}:{v:.3g}" for k, v in d.items())
+    mesh_like = type("M", (), {"shape": {a: sizes.get(a, 1)
+                                         for a in AXIS_ORDER}})
+    specs = param_shardings(cfg, mesh_like)
+    replicated_same = True
+    for k, spec in specs.items():
+        held = {}
+        for rr in res:
+            block = tuple(rr["coords"][a] for a in spec.values())
+            held.setdefault(block, set()).add(rr["digests"][k])
+        replicated_same &= all(len(d) == 1 for d in held.values())
+    sp_size = sizes.get("sp", 1)
+    for rr in res:
+        c = rr["coords"]
+        # the causal ring: sp position i attends i + 1 blocks a layer
+        want = {"flash_attention_fwd": cfg.n_layers * LAYOUT_STEPS
+                * (c["sp"] + 1 if sp_size > 1 else 1),
+                "xent_fwd": LAYOUT_STEPS if sizes.get("tp", 1) == 1 else 0}
+        rel = abs(rr["losses"][0] - rr["cpu_loss"]) / abs(rr["cpu_loss"])
+        say(role, rank=rr["rank"], mesh=json.dumps(sizes).replace(" ", ""),
+            coords=",".join(f"{a}{c[a]}" for a in AXIS_ORDER if a in sizes),
+            width=f"V{cfg.vocab_size} M{cfg.d_model} H{cfg.n_heads}x"
+            f"{cfg.head_dim} L{cfg.n_layers} F{cfg.d_ff} S{cfg.max_seq} B8 "
+            + str(cfg.dtype).split(".")[-1]
+            + (f" E{cfg.n_experts} top{cfg.moe_top_k} "
+               f"cf{cfg.capacity_factor}" if moe else ""),
+            losses=",".join(f"{x:.6f}" for x in rr["losses"]),
+            step_ms=",".join(f"{x:.3f}" for x in rr["step_ms"]),
+            cpu_fp32_loss=rr["cpu_loss"], step1_rel=rel,
+            tol_rel=LAYOUT_LOSS_TOL,
+            launches=",".join(f"{k}:{v}" for k, v in rr["launches"].items()),
+            want_launches=",".join(f"{k}:{v}" for k, v in want.items()),
+            gloo_host_staged=",".join(rr["gloo_host_staged"]) or "none",
+            seconds=rr["seconds"], card=card)
+        check(rr["losses"] == res[0]["losses"],
+              f"{role}: rank {rr['rank']} reports losses {rr['losses']}, "
+              f"rank 0 {res[0]['losses']}")
+        check(all(map(math.isfinite, rr["losses"]))
+              and rr["losses"][-1] < rr["losses"][0],
+              f"{role}: loss did not fall: {rr['losses']}")
+        check(rel <= LAYOUT_LOSS_TOL, f"{role}: step 1 loss "
+              f"{rr['losses'][0]} is {rel} off the fp32 CPU loss "
+              f"{rr['cpu_loss']}")
+        check(rr["launches"] == want, f"{role}: rank {rr['rank']} launched "
+                                      f"{rr['launches']}, expected {want}")
+        for key, kc in rr["kernel_checks"].items():
+            say(role, rank=rr["rank"], kernel_on_rank_inputs=key,
+                **{k: v for k, v in kc.items() if k != "ok"},
+                tol_o_rel=LAYOUT_FLASH_O_TOL, tol_lse=LAYOUT_FLASH_LSE_TOL,
+                tol_xent_rel=LAYOUT_XENT_TOL)
+            check(kc["ok"], f"{role}: rank {rr['rank']}'s {key} kernel "
+                            f"launch disagrees with the plain version: {kc}")
+    # the ranks together ran both ring kinds, and xent where tp is 1
+    kinds = {k for rr in res for k in rr["kernel_checks"]}
+    want_kinds = {"ring_diag", "ring_full"} | (
+        {"xent"} if sizes.get("tp", 1) == 1 else set())
+    check(kinds == want_kinds, f"{role}: kernels held on the ranks' inputs "
+                               f"{sorted(kinds)}, expected "
+                               f"{sorted(want_kinds)}")
+    say(role, ranks=n, world_seconds=world_s,
+        grad_reference="grouped one-process fp32" if moe
+        else "one-process fp32",
+        fp32_grad_rel_l2=fmt(errs32), fp32_worst=worst32,
+        tol_fp32_grad_rel_l2=LAYOUT_FP32_GRAD_TOL,
+        bf16_grad_rel_l2=fmt(errs), bf16_worst=worst,
+        tol_bf16_grad_rel_l2=LAYOUT_GRAD_TOL if not moe
+        else f"{LAYOUT_MOE_FLOOR_RATIO} floors",
+        one_process_bf16_grad_rel_l2_floor=fmt(floor),
+        bf16_grad_floors=fmt(floors),
+        bf16_vs_one_process_bf16_rel_l2=fmt(errs_pair),
+        bf16_vs_one_process_bf16_floors=fmt(floors_pair),
+        tol_vs_one_process_bf16=f"{LAYOUT_MOE_PAIR_RATIO} floors"
+        if moe else "none",
+        one_process_bf16_rerouted_tokens=",".join(map(str, rerouted))
+        + (f" of {routes32[0].shape[0]}" if routes32 else ""),
+        replicated_leaves_bit_identical=replicated_same)
+    check(errs32[worst32] <= LAYOUT_FP32_GRAD_TOL,
+          f"{role}: fp32 step-1 gradient of {worst32} is {errs32[worst32]} "
+          f"off the one-process fp32 gradient")
+    check(moe or errs[worst] <= LAYOUT_GRAD_TOL,
+          f"{role}: bf16 step-1 gradient of {worst} is {errs[worst]} off "
+          f"the one-process fp32 gradient")
+    check(not moe or max(floors.values()) <= LAYOUT_MOE_FLOOR_RATIO,
+          f"{role}: bf16 step-1 gradient off the fp32 one by more than "
+          f"{LAYOUT_MOE_FLOOR_RATIO} one-process floors: {fmt(floors)}")
+    check(not moe or max(floors_pair.values()) <= LAYOUT_MOE_PAIR_RATIO,
+          f"{role}: bf16 step-1 gradient off one process's bf16 one by "
+          f"more than {LAYOUT_MOE_PAIR_RATIO} floors: {fmt(floors_pair)}")
+    check(replicated_same, f"{role}: replicated leaves differ across the "
+                           f"ranks that hold them")
+    if role == "tp_sp":
+        for rr in res:
+            u = rr["ulysses"]
+            say("ulysses", rank=rr["rank"], sp=sizes["sp"],
+                shape="x".join(map(str, ULYSSES_SHAPE)) + " bf16 causal",
+                max_abs_err_o=u["max_abs_err_o"],
+                grad_rel_l2=",".join(f"{c}:{e}" for c, e in
+                                     u["grad_rel_l2"].items()),
+                tol=ULYSSES_TOL, flash_attention_fwd=u["launches"])
+            check(u["max_abs_err_o"] <= ULYSSES_TOL
+                  and max(u["grad_rel_l2"].values()) <= ULYSSES_TOL,
+                  f"ulysses: rank {rr['rank']} off the plain attention: {u}")
+            check(u["launches"] == 1, f"ulysses: rank {rr['rank']} launched "
+                                      f"flash_attn_fwd {u['launches']} times")
+    return [rr["launches"] for rr in res]
 
 
 def gloo_rank_main(out_dir: str) -> int:
@@ -1351,9 +1957,26 @@ def main() -> int:
         check(any(got.get(name, 0) > 0 for got in observed.values()),
               f"{name} never ran inside an observed step")
 
+    # -- the guard selects on the card, without a host sync
+    phase_guard(torch, dev)
+
+    # -- tensor, sequence and expert parallelism: 4-rank gloo worlds on the
+    # card at full width ([ulysses] runs in the [tp_sp] world)
+    card = smi.replace(", ", "/").replace(" ", "_")
+    layout_launches = {role: phase_layout(torch, role, card, dev)
+                       for role in LAYOUT_PHASES}
+    for k in kernels:
+        k["layout_launches"] = {role: [got.get(k["name"], 0) for got in ranks]
+                                for role, ranks in layout_launches.items()}
+    check(all(n > 0 for ranks in layout_launches.values()
+              for n in (got["flash_attention_fwd"] for got in ranks)),
+          "flash_attn_fwd did not run on every rank of a layout phase")
+    check(all(got["xent_fwd"] > 0 for got in layout_launches["moe_ep_sp"]),
+          "xent_fwd did not run on every [moe_ep_sp] rank")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "dp_launches", "telemetry_launches")
+            "dp_launches", "telemetry_launches", "layout_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1365,5 +1988,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit(gloo_rank_main(sys.argv[2]))
+        role = sys.argv[3] if len(sys.argv) > 3 else "dp"
+        sys.exit(gloo_rank_main(sys.argv[2]) if role == "dp"
+                 else layout_rank_main(sys.argv[2], role))
     sys.exit(main())

@@ -36,6 +36,20 @@ _all_gather = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
 
+# Collectives that gloo does not run on CUDA tensors: with ranks sharing a
+# card (gloo, since NCCL cannot put two ranks on one card) their tensors
+# are copied to the host and back, explicitly. On an H100 with torch
+# 2.11.0+cu128, gloo's send/recv wrote from the device pointer and failed
+# ("writev: Bad address"); it took CUDA tensors for allreduce, allgather,
+# broadcast and all_to_all_single.
+GLOO_HOST_STAGED = ("send_recv",)
+
+
+def _host_staged(op: str, t: torch.Tensor, group) -> bool:
+    return (op in GLOO_HOST_STAGED and t.is_cuda
+            and dist.get_backend(group) == "gloo")
+
+
 class Pending:
     """A collective in flight: :meth:`wait` returns its result."""
 
@@ -275,11 +289,15 @@ def pring_shift(x: torch.Tensor, axis, shift: int = 1) -> torch.Tensor:
 
 def _exchange(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
               group) -> None:
+    staged = _host_staged("send_recv", send, group)
+    buf = torch.empty_like(recv, device="cpu") if staged else recv
     works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, dst, group),
-        dist.P2POp(dist.irecv, recv, src, group)])
+        dist.P2POp(dist.isend, send.cpu() if staged else send, dst, group),
+        dist.P2POp(dist.irecv, buf, src, group)])
     for w in works:
         w.wait()
+    if staged:
+        recv.copy_(buf)
 
 
 def pring_allreduce(x: torch.Tensor, axis, op: ReduceOp = ReduceOp.SUM

@@ -1,4 +1,5 @@
-"""Process meshes (see :mod:`.mesh`)."""
+"""Process meshes (see :mod:`.mesh`); ring attention, Ulysses and MoE
+over their axes (see :mod:`.ring_attention`, :mod:`.ulysses`, :mod:`.moe`)."""
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
@@ -6,6 +7,7 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     MeshSpec,
     build_mesh,
+    data_sharding_spec,
     mesh_axis_size,
     shard_batch,
 )

@@ -159,23 +159,38 @@ def mesh_axis_size(mesh: Mesh, axis: str) -> int:
     return mesh.shape.get(axis, 1)
 
 
+def data_sharding_spec(mesh: Mesh) -> Tuple[Tuple[str, ...], Optional[str]]:
+    """``(batch axes, sequence axis)``: the batch dim splits over every live
+    data-like axis, dp and (expert parallelism subdividing the data-
+    parallel groups, DeepSpeed-MoE style) ep, dp outermost; the sequence
+    dim over sp when it is live. The JAX ``data_sharding_spec``'s
+    ``P(("dp", "ep"), "sp")``."""
+    batch = tuple(a for a in ("dp", "ep") if mesh.shape[a] > 1)
+    return batch, ("sp" if mesh.shape["sp"] > 1 else None)
+
+
 def shard_batch(tokens: torch.Tensor, targets: torch.Tensor, mesh: Mesh
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """This rank's rows of a global batch: ``dp`` splits the leading
-    (batch) dim into equal contiguous blocks, block ``i`` to dp position
-    ``i``, as the JAX package's ``shard_batch`` shards it over devices."""
-    for a in ("ep", "sp"):
-        if mesh.shape[a] > 1:
-            raise NotImplementedError(
-                f"batches sharded over {a!r} arrive with the slice that "
-                f"ports that axis")
-    ax = mesh.axis(DATA_AXIS)
-    return tuple(_rows(x, ax) for x in (tokens, targets))
+    """This rank's block of a global ``[B, S]`` batch, as the JAX
+    package's ``shard_batch`` shards it over devices: the rows split into
+    equal contiguous blocks over ``(dp, ep)`` (block ``dp_i * ep + ep_i``),
+    the sequence over sp (block ``sp_i``); tp and pp ranks get the same
+    block."""
+    batch_axes, seq_axis = data_sharding_spec(mesh)
+
+    def local(x):
+        for a in batch_axes:
+            x = _block(x, mesh.axis(a), 0)
+        if seq_axis is not None:
+            x = _block(x, mesh.axis(seq_axis), 1)
+        return x
+
+    return local(tokens), local(targets)
 
 
-def _rows(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    if x.shape[0] % ax.size:
-        raise ValueError(f"a batch of {x.shape[0]} rows does not split over "
-                         f"{ax.name}={ax.size}")
-    n = x.shape[0] // ax.size
-    return x[ax.index * n:(ax.index + 1) * n]
+def _block(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    if x.shape[dim] % ax.size:
+        raise ValueError(f"a batch of {x.shape[dim]} along dim {dim} does not "
+                         f"split over {ax.name}={ax.size}")
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.index * n, n)

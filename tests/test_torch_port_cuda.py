@@ -8,10 +8,15 @@ conftest left out:
         tests/test_torch_port_cuda.py
 """
 
+import os
+import sys
+
 import pytest
 import torch
 
 from horovod_tpu_torch.ops import attention, quantize, xent
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -428,3 +433,73 @@ def test_memory_gauges_read_the_card(dev):
     assert st["bytes_in_use"] >= x.numel()
     assert 0 < st["peak_bytes_in_use"] <= st["bytes_limit"]
     assert st["bytes_limit"] == torch.cuda.mem_get_info(dev)[1]
+
+
+# -- ring attention over a gloo world of two ranks on the card ------------------
+
+RING_SHAPE = (2, 512, 4, 64)     # [B, S, H, D] bf16, S split over sp = 2
+
+
+def _w_ring():
+    """One rank of the ``ring`` world (``cuda:0``, gloo): its block of the
+    ring with the kernel and of the plain ring (the online algebra, no
+    kernel) on the same bf16 inputs, causal and not, the kernel's launches,
+    and both paths' gradients of ``sum(o * w)``."""
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention_spmd
+    dev = torch.device("cuda", 0)
+    sp = hvd.build_mesh(sp=2).axis("sp")
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(*RING_SHAPE, generator=g, device=dev).to(BF)
+               for _ in range(3))
+    w = torch.randn(*RING_SHAPE, generator=g, device=dev)
+    n = RING_SHAPE[1] // 2
+    blk = slice(sp.index * n, (sp.index + 1) * n)
+    out = {"sp_index": np.array(sp.index)}
+    for causal in (True, False):
+        for flash in (True, False):
+            xs = [x[:, blk].clone().requires_grad_() for x in (q, k, v)]
+            before = attention.flash_attn_fwd_cuda.launches
+            o = ring_attention_spmd(*xs, sp, causal, use_flash=flash)
+            out[f"launches_{causal}_{flash}"] = np.array(
+                attention.flash_attn_fwd_cuda.launches - before)
+            (o.float() * w[:, blk]).sum().backward()
+            tag = f"{causal}_{flash}"
+            out[f"o_{tag}"] = o.detach().float().cpu().numpy()
+            for c, x in zip("qkv", xs):
+                out[f"d{c}_{tag}"] = x.grad.float().cpu().numpy()
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_attention_kernel_matches_plain_ring_on_gloo(dev, tmp_path,
+                                                          causal):
+    """At sp = 2, two gloo ranks sharing the card (gloo's send/recv cannot
+    take CUDA tensors, so the ring's exchanges go through the host): the
+    ring through ``flash_attn_fwd`` equals the plain ring within the
+    kernel's bf16 tolerance (2e-2), and so do the gradients (rel L2); the
+    kernel runs once on sp rank 0 and twice on rank 1 when causal (the
+    later block is skipped), twice on both otherwise."""
+    import numpy as np
+    from torch_port_worker import spawn_world
+    ranks = spawn_world(__file__, "ring", 2, tmp_path,
+                        {"HOROVOD_TPU_OPERATIONS": "GLOO",
+                         "HVD_TPU_LOCAL_RANK": "0",
+                         "HVD_TPU_LOCAL_SIZE": "1"}, timeout=300)
+    for r in ranks:
+        i = int(r["sp_index"])
+        got, ref = f"{causal}_True", f"{causal}_False"
+        assert float(np.abs(r[f"o_{got}"] - r[f"o_{ref}"]).max()) <= 2e-2
+        for c in "qkv":
+            a, b = r[f"d{c}_{got}"], r[f"d{c}_{ref}"]
+            assert np.linalg.norm(a - b) / np.linalg.norm(b) <= 2e-2, c
+        assert int(r[f"launches_{got}"]) == (i + 1 if causal else 2)
+        assert int(r[f"launches_{ref}"]) == 0
+
+
+if __name__ == "__main__":
+    import sys
+    from torch_port_worker import worker_main
+    sys.exit(worker_main({"ring": _w_ring}, sys.argv[1:]))

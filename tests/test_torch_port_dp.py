@@ -33,6 +33,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 150
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_port_worker import spawn_world  # noqa: E402
+
 if __name__ != "__main__":
     import functools
 
@@ -47,69 +50,12 @@ if __name__ != "__main__":
 
 # -- the spawner ---------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn(group: str, n: int, out_dir, extra_env=None,
-          timeout: float = SPAWN_TIMEOUT_S):
-    """Run the worker ``group`` as a gloo world of ``n`` processes and
-    return each rank's results (dicts of arrays). A rank that fails or
-    outlives ``timeout`` fails the call; every process of the world is
-    killed on the way out. A rendezvous port taken between its pick and
-    rank 0's bind is picked again, once."""
-    try:
-        return _spawn(group, n, str(out_dir), extra_env, timeout)
-    except AssertionError as e:
-        if "Address already in use" not in str(e):
-            raise
-        return _spawn(group, n, str(out_dir), extra_env, timeout)
-
-
-def _spawn(group, n, out_dir, extra_env, timeout):
-    port = _free_port()
-    procs, logs = [], []
-    for r in range(n):
-        env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
-                   HVD_TPU_RANK=str(r), HVD_TPU_SIZE=str(n),
-                   HVD_TPU_LOCAL_RANK=str(r), HVD_TPU_LOCAL_SIZE=str(n),
-                   HVD_TPU_CROSS_RANK="0", HVD_TPU_CROSS_SIZE="1",
-                   HVD_TPU_RENDEZVOUS_ADDR="127.0.0.1",
-                   HVD_TPU_RENDEZVOUS_PORT=str(port),
-                   HVD_TPU_GLOO_TIMEOUT_SECONDS=str(timeout),
-                   OMP_NUM_THREADS="1")
-        env.update(extra_env(r) if callable(extra_env) else extra_env or {})
-        log = open(os.path.join(out_dir, f"{group}.rank{r}.log"), "w+")
-        logs.append(log)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--worker", group,
-             "--out", out_dir], env=env, cwd=REPO, stdout=log,
-            stderr=subprocess.STDOUT, start_new_session=True))
-    try:
-        for p in procs:
-            p.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        hung = [p for p in procs if p.poll() is None]
-        for p in hung:
-            os.killpg(p.pid, signal.SIGKILL)
-        for p in hung:
-            p.wait(timeout=30)
-    failed = []
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        log.seek(0)
-        text = log.read()
-        log.close()
-        if p.returncode != 0:
-            failed.append(f"rank {r} exit {p.returncode}:\n{text[-3000:]}")
-    if failed:
-        raise AssertionError(f"worker group {group!r} failed (timeout "
-                             f"{timeout} s):\n" + "\n".join(failed))
-    return [dict(np.load(os.path.join(out_dir, f"{group}.rank{r}.npz")))
-            for r in range(n)]
+          timeout: float = SPAWN_TIMEOUT_S, script: str = __file__):
+    """Run the worker ``group`` of ``script`` (this file by default) as a
+    gloo world of ``n`` processes and return each rank's results (dicts of
+    arrays); see ``tests/torch_port_worker.py``."""
+    return spawn_world(script, group, n, out_dir, extra_env, timeout)
 
 
 # -- inputs, from numpy seeds (both sides) -------------------------------------

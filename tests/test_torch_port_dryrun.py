@@ -1,0 +1,53 @@
+"""``horovod_tpu_torch.dryrun.dryrun_multichip`` on the CPU: one train step
+per layout of the JAX dry-run table, in gloo worlds of 2, 4 and 8
+processes. Each pp-free layout's loss is the JAX package's at the same
+layout (1e-4); the pp layout of n = 8 raises, naming the pp slice, after
+the MoE layout beside it ran."""
+
+import json
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+
+from horovod_tpu_torch.dryrun import B, S, dryrun_multichip, layouts
+
+
+def _jax_loss(moe, sizes):
+    """The JAX flagship's (tiny, the dry run's config) loss at a layout."""
+    import dataclasses
+    from __graft_entry__ import _flagship_cfg
+    from horovod_tpu.models import (init_params, make_grad_fn, shard_batch,
+                                    shard_params)
+    from horovod_tpu.parallel.mesh import build_mesh
+    cfg = _flagship_cfg(tiny=True)
+    if moe:
+        cfg = dataclasses.replace(cfg, n_experts=4, n_microbatches=1)
+    n = int(np.prod(list(sizes.values())))
+    mesh = build_mesh(**sizes, devices=jax.devices()[:n])
+    params = shard_params(init_params(np.random.RandomState(0), cfg, 1), cfg,
+                          mesh)
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, cfg.vocab_size, (B, S))
+    targets = np.roll(tokens, -1, 1)
+    tok, tgt = shard_batch(jnp.asarray(tokens, jnp.int32),
+                           jnp.asarray(targets, jnp.int32), mesh)
+    loss, _, _ = jax.jit(make_grad_fn(cfg, mesh))(params, tok, tgt)
+    return float(loss)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_dryrun_runs_every_pp_free_layout(n):
+    if any(s.get("pp", 1) > 1 for _, s in layouts(n)):
+        with pytest.raises(NotImplementedError, match="pp slice") as err:
+            dryrun_multichip(n, device="cpu")
+        losses = err.value.losses
+    else:
+        losses = dryrun_multichip(n, device="cpu")
+    free = [(moe, s) for moe, s in layouts(n) if s.get("pp", 1) == 1]
+    assert sorted(losses) == sorted(json.dumps(s) for _, s in free)
+    for moe, sizes in free:
+        want = _jax_loss(moe, sizes if moe else {"dp": 1})
+        np.testing.assert_allclose(losses[json.dumps(sizes)], want,
+                                   rtol=1e-4, err_msg=str(sizes))

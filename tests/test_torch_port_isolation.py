@@ -216,3 +216,27 @@ def test_cuda_tensor_of_unsupported_dtype_raises(dtype):
         with pytest.raises(TypeError):
             wrapper(x)
     assert [f.launches for f in quantize.LAUNCHERS] == before
+
+
+def test_parallel_axes_modules_import_and_export():
+    """The tensor/sequence/expert slice's modules stand alone too: each has
+    its docstring, the model package exports the sharded entry points, and
+    the dry run refuses to drift onto the CPU without being asked."""
+    from horovod_tpu_torch import dryrun, models
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.ops import autograd_collectives
+    from horovod_tpu_torch.parallel import mesh, moe, ring_attention, ulysses
+    for m in (dryrun, transformer, autograd_collectives, moe, ring_attention,
+              ulysses):
+        assert m.__doc__
+    for name in ("shard_params", "shard_state_dict", "param_shardings",
+                 "forward_loss_spmd", "data_sharding_spec"):
+        assert getattr(models, name) is getattr(transformer, name)
+    assert models.data_sharding_spec is mesh.data_sharding_spec
+    assert horovod_tpu_torch.shard_batch is mesh.shard_batch
+
+
+def test_dryrun_without_device_raises_without_cuda(no_cuda):
+    from horovod_tpu_torch.dryrun import dryrun_multichip
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)

@@ -25,7 +25,7 @@ from horovod_tpu.parallel.mesh import build_mesh
 from horovod_tpu_torch.entry import _flagship_cfg, entry
 from horovod_tpu_torch.models import (Transformer, adamw, from_jax_params,
                                       init_opt_state, init_params,
-                                      make_forward, make_grad_fn,
+                                      lm_loss, make_forward, make_grad_fn,
                                       make_train_step)
 from horovod_tpu_torch.models.scan_util import multi_step
 
@@ -183,7 +183,52 @@ def test_step_rejects_a_model_of_another_config(setup):
 
 
 def test_moe_config_raises():
+    """An MoE config builds since the expert-parallel slice; what still
+    raises is a mesh with pp > 1, with a message that names the pp slice
+    (here a stand-in mesh: the check reads its shape first)."""
     import dataclasses
     cfg = dataclasses.replace(_flagship_cfg(tiny=True), n_experts=4)
-    with pytest.raises(NotImplementedError):
-        Transformer(cfg, device="cpu")
+    model = Transformer(cfg, device="cpu")
+    assert tuple(model.layers["we1"].shape) == (1, 4, 4, 64, 128)
+
+    class PipelineMesh:
+        shape = {"dp": 1, "pp": 2, "ep": 1, "sp": 1, "tp": 1}
+
+    with pytest.raises(NotImplementedError, match="pp slice"):
+        Transformer(cfg, device="cpu", mesh=PipelineMesh())
+    with pytest.raises(NotImplementedError, match="pp slice"):
+        make_train_step(cfg, PipelineMesh())
+
+
+def test_model_and_step_share_one_mesh():
+    """A model built with a mesh runs only under a step built with that
+    mesh, and ``lm_loss`` (whose dp engines average over dp themselves)
+    refuses a model whose mesh has a live data axis; a model built without
+    a mesh runs under any mesh its shapes fit."""
+    from types import SimpleNamespace
+
+    class Mesh:
+        def __init__(self, **live):
+            self.shape = {a: live.get(a, 1) for a in
+                          ("dp", "pp", "ep", "sp", "tp")}
+
+        def axis(self, a):
+            return SimpleNamespace(name=a, size=self.shape[a], index=0)
+
+    cfg = _flagship_cfg(tiny=True)
+    sd = from_jax_params(init_params(np.random.RandomState(0), cfg))
+    tokens = torch.zeros((2, 8), dtype=torch.long)
+    one, other = Mesh(), Mesh()
+    model = Transformer(cfg, device="cpu", mesh=one)
+    model.load_state_dict(sd)
+    make_forward(cfg, one)(model, tokens, tokens)
+    for mesh in (other, None):
+        with pytest.raises(ValueError, match="build both with one"):
+            make_forward(cfg, mesh)(model, tokens, tokens)
+    bare = Transformer(cfg, device="cpu")
+    bare.load_state_dict(sd)
+    make_forward(cfg, other)(bare, tokens, tokens)
+    lm_loss(model, (tokens, tokens))
+    with pytest.raises(ValueError, match="live data axes"):
+        lm_loss(Transformer(cfg, device="cpu", mesh=Mesh(dp=2)),
+                (tokens, tokens))
