@@ -124,6 +124,37 @@ The tensor, sequence and expert slice adds four phases:
 gloo's send/recv cannot take CUDA tensors (the ring's exchanges go through
 the host, ``mesh_collectives.GLOO_HOST_STAGED``, printed on each line).
 
+The pipeline slice adds four phases:
+
+* ``[pp_tp]``: the flagship on ``{pp:2, tp:2}`` with PP_MICRO microbatches
+  (GPipe), a layout phase as above (four gloo ranks): ``flash_attn_fwd``
+  ``L/pp x PP_MICRO`` times a step on every rank, ``xent_fwd`` never (the
+  vocab is split); the embedding and ``ln_f`` bit-identical across the
+  stages, and every leaf across its replicas, after every step; the bf16
+  gradient held in floors as MoE's.
+* ``[pipeline_1f1b]`` and ``[pipeline_interleaved]``: two gloo ranks of
+  ``make_pipeline_train_step`` over ``{pp:2}`` (1F1B; interleaved with two
+  chunks of one layer a rank), PIPELINE_MICRO microbatches, the
+  flagship's block as ``layer_fn`` and ``ln_f``, the tied head (held
+  fixed) and the fused xent as ``loss_fn``, on the seed-0 embedding of the
+  seed-1 tokens, PIPELINE_STEPS fused AdamW steps. Checks: the fp32
+  losses and final parameters (gathered, natural order) within
+  PIPELINE_FP32_TOL of the pp = 1 step in one process (the overlap
+  engine, an NCCL world of one), step 1's bf16 loss within
+  PIPELINE_LOSS_TOL of its fp32 loss, equal losses on both ranks,
+  ``flash_attn_fwd`` 8 times a step on each rank and ``xent_fwd`` 4 times
+  on the rank holding the last chunk, each held against its plain version
+  on the rank's own inputs, and a NaN step skipped on both stages with the
+  guard's device work under ``set_sync_debug_mode("error")``. Each prints
+  its step ms and the measured bubble, ``1 − t(pp = 1) / t(pp)`` with
+  t(pp = 1) one process's step on a rank's share of the work (half the
+  rows, microbatches of two), beside the analytic one (no limit: gloo
+  ranks on one card price no layout).
+* ``[autotune]``: in the one-process world, ``make_overlap_train_step(...,
+  autotune=...)`` over AUTOTUNE_PLANS with a budget of AUTOTUNE_BUDGET
+  steps locks one plan, and a second build over the same cache directory
+  locks it with zero trials.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -180,8 +211,10 @@ FLOPS_TOL = 1e-3
 # the tensor/sequence/expert slice: 4-rank gloo worlds on cuda:0 at the
 # flagship's full width, 3 AdamW steps each; (moe, mesh sizes)
 LAYOUT_PHASES = {"tp_sp": (False, {"sp": 2, "tp": 2}),
-                 "moe_ep_sp": (True, {"ep": 2, "sp": 2})}
+                 "moe_ep_sp": (True, {"ep": 2, "sp": 2}),
+                 "pp_tp": (False, {"pp": 2, "tp": 2})}
 LAYOUT_STEPS = 3
+PP_MICRO = 2              # the flagship's microbatches under pp ([pp_tp])
 # step 1's bf16 loss against the fp32 CPU loss of the layout, relative
 # (2.3e-5 to 2.5e-5 on an H100: at init the loss sits near ln V and moves
 # little, so the limit is tight), and each leaf's step-1 gradient against
@@ -196,12 +229,16 @@ LAYOUT_GRAD_TOL = 2e-2
 # H100), so bf16 MoE gradients differ from fp32 by up to 10% in one process
 # already, sharded or not; they are printed beside that one-process figure
 LAYOUT_FP32_GRAD_TOL = 1e-3
-# MoE's bf16 step-1 gradient, per leaf, in units of the floor: one
-# process's bf16 grouped gradient against the fp32 one, from the same run.
-# Against fp32, the layout may be no further than 1.5 floors (one process
-# and the layout see the same bf16 roundings and reroutings: 0.96 to 1.06
-# floors on an H100); against one process's bf16 gradient, no further
-# than the two floors that both being within a floor of fp32 allows
+# MoE's and pp's bf16 step-1 gradient, per leaf, in units of the floor:
+# one process's bf16 (grouped) gradient against the fp32 one, from the
+# same run. Against fp32, the layout may be no further than 1.5 floors
+# (one process and the MoE layout see the same bf16 roundings and
+# reroutings: 0.96 to 1.06 floors on an H100; under pp each microbatch's
+# layer gradients are rounded to bf16 on their own where one process
+# rounds their sum once: up to 1.33 floors, wk 2.1e-2 rel L2 where one
+# process is 1.58e-2 off, so LAYOUT_GRAD_TOL does not apply there);
+# against one process's bf16 gradient, no further than the two floors
+# that both being within a floor of fp32 allows
 LAYOUT_MOE_FLOOR_RATIO = 1.5
 LAYOUT_MOE_PAIR_RATIO = 2.0
 # the kernels on a layout rank's own inputs (its first bf16 ring blocks,
@@ -214,6 +251,19 @@ LAYOUT_FLASH_LSE_TOL = 1e-4
 LAYOUT_XENT_TOL = 1e-5
 ULYSSES_SHAPE = (8, 256, 8, 64)   # [B, S, H, D] bf16 over sp = 2
 ULYSSES_TOL = 2e-2                # the bf16 flash_attn_fwd tolerance above
+# make_pipeline_train_step over {pp:2}: schedule and chunks per rank
+PIPELINE_PHASES = {"pipeline_1f1b": ("1f1b", 1),
+                   "pipeline_interleaved": ("interleaved", 2)}
+PIPELINE_MICRO = 4
+PIPELINE_STEPS = 3
+# the pipelined fp32 trajectory (3 losses, final parameters) against the
+# pp = 1 step in one process, relative: the same fp32 sums in another
+# order; and step 1's bf16 loss against that fp32 loss (LAYOUT_LOSS_TOL's
+# reasoning)
+PIPELINE_FP32_TOL = 1e-3
+PIPELINE_LOSS_TOL = 1e-3
+# [autotune]: make_overlap_train_step(autotune=...) over AUTOTUNE_PLANS
+AUTOTUNE_BUDGET = 12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1072,18 +1122,19 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str) -> None:
+def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str,
+                    backend: str = "GLOO") -> None:
     """Start ``n`` ranks of this script (``--gloo-rank DIR ROLE``), gloo
-    world, all on ``cuda:0`` as one-card hosts, with a timeout; kill their
-    process groups on the way out, and fail ``label`` if a rank did. The
-    ranks write their results to ``out_dir``."""
+    world (or ``backend``), all on ``cuda:0`` as one-card hosts, with a
+    timeout; kill their process groups on the way out, and fail ``label``
+    if a rank did. The ranks write their results to ``out_dir``."""
     port = _free_port()
     procs, logs = [], []
     for r in range(n):
         env = dict(os.environ, HVD_TPU_RANK=str(r), HVD_TPU_SIZE=str(n),
                    HVD_TPU_LOCAL_RANK="0", HVD_TPU_LOCAL_SIZE="1",
                    HVD_TPU_CROSS_RANK=str(r), HVD_TPU_CROSS_SIZE=str(n),
-                   HOROVOD_TPU_OPERATIONS="GLOO",
+                   HOROVOD_TPU_OPERATIONS=backend,
                    HVD_TPU_RENDEZVOUS_ADDR="127.0.0.1",
                    HVD_TPU_RENDEZVOUS_PORT=str(port),
                    HVD_TPU_GLOO_TIMEOUT_SECONDS=str(GLOO_TIMEOUT_S))
@@ -1256,11 +1307,14 @@ def phase_guard(torch, dev):
           "guard: the skipped step changed the parameters or the state")
 
 
-def layout_cfg(moe: bool):
+def layout_cfg(moe: bool, sizes=None):
     """The flagship at full width; with 4 experts, top-2, capacity 1.25
-    (the dry run's MoE config) for an MoE phase."""
+    (the dry run's MoE config) for an MoE phase, and PP_MICRO pipeline
+    microbatches for a layout with pp."""
     from horovod_tpu_torch.entry import _flagship_cfg
     cfg = _flagship_cfg()
+    if (sizes or {}).get("pp", 1) > 1:
+        cfg = dataclasses.replace(cfg, n_microbatches=PP_MICRO)
     return dataclasses.replace(cfg, n_experts=4) if moe else cfg
 
 
@@ -1407,7 +1461,7 @@ def layout_rank_main(out_dir: str, role: str) -> int:
     hvd.init()
     r = hvd.rank()
     moe, sizes = LAYOUT_PHASES[role]
-    cfg = layout_cfg(moe)
+    cfg = layout_cfg(moe, sizes)
     mesh = hvd.build_mesh(**sizes)
     dev = hvd.device()
     sd = shard_params(init_params(np.random.RandomState(0), cfg), cfg, mesh)
@@ -1437,7 +1491,7 @@ def layout_rank_main(out_dir: str, role: str) -> int:
                 "xent_fwd": xent.xent_fwd_cuda}
     for c in counters.values():
         c.launches = 0
-    losses, ms, recorded = [], [], {}
+    losses, ms, recorded, digests = [], [], {}, []
     for i in range(LAYOUT_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1450,13 +1504,15 @@ def layout_rank_main(out_dir: str, role: str) -> int:
             torch.save({k: p.grad.detach().float().cpu()
                         for k, p in model.named_parameters()},
                        os.path.join(out_dir, f"grads{r}.pt"))
+        digests.append({k: hashlib.sha256(
+            p.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, p in model.state_dict().items()})
     res = {"rank": r, "losses": losses, "step_ms": ms,
            "cpu_loss": float(cpu_loss), "cpu_aux": float(cpu_aux),
            "launches": {k: c.launches for k, c in counters.items()},
            "kernel_checks": kernels_on_rank_inputs(torch, recorded),
            "coords": {a: mesh.axis(a).index for a in AXIS_ORDER},
-           "digests": {k: hashlib.sha256(p.detach().cpu().numpy().tobytes())
-                       .hexdigest() for k, p in model.state_dict().items()},
+           "digests": digests,
            "gloo_host_staged": list(mesh_collectives.GLOO_HOST_STAGED)}
     del model, opt
     if role == "tp_sp":
@@ -1511,7 +1567,7 @@ def layout_reference_grads(torch, moe: bool, sizes: dict, dev,
     from horovod_tpu_torch.models import (Transformer, forward_loss_spmd,
                                           from_jax_params, init_params)
     cfg = dataclasses.replace(layout_cfg(moe), dtype=dtype)
-    model = Transformer(cfg, dev)
+    model = Transformer(cfg, dev)     # one stage: pp needs no grouping
     model.load_state_dict(from_jax_params(init_params(
         np.random.RandomState(0), cfg)))
     tok, tgt = (x.to(dev) for x in flagship_batch(cfg))
@@ -1546,11 +1602,15 @@ class record_routes:
 
 
 def _slice_for(t, key, cfg, sizes, coords):
-    """The block of a full leaf that the rank at ``coords`` holds."""
+    """The block of a full leaf (layers ``[1, L, ...]``) that the rank at
+    ``coords`` holds; the layers viewed as ``[pp, L/pp, ...]`` first."""
     from types import SimpleNamespace
     from horovod_tpu_torch.models import param_shardings
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
     mesh = SimpleNamespace(shape={a: sizes.get(a, 1) for a in AXIS_ORDER})
+    pp = sizes.get("pp", 1)
+    if key.startswith("layers."):
+        t = t.reshape((pp, t.shape[1] // pp) + tuple(t.shape[2:]))
     for d, a in param_shardings(cfg, mesh)[key].items():
         n = t.shape[d] // sizes[a]
         t = t.narrow(d, coords[a] * n, n)
@@ -1565,7 +1625,7 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
     moe, sizes = LAYOUT_PHASES[role]
     n = math.prod(sizes.values())
-    cfg = layout_cfg(moe)
+    cfg = layout_cfg(moe, sizes)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=f"{role}_") as out_dir:
         _run_gloo_ranks(out_dir, n, role, role)
@@ -1609,24 +1669,32 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
     floors_pair = {k: errs_pair[k] / floor[k] for k in floor}
     worst = max(errs, key=errs.get)
     worst32 = max(errs32, key=errs32.get)
+    in_floors = moe or sizes.get("pp", 1) > 1
 
     def fmt(d):
         return ",".join(f"{k.split('.')[-1]}:{v:.3g}" for k, v in d.items())
     mesh_like = type("M", (), {"shape": {a: sizes.get(a, 1)
                                          for a in AXIS_ORDER}})
     specs = param_shardings(cfg, mesh_like)
+    # after every step (under pp, the embedding and ln_f across the
+    # stages too)
     replicated_same = True
     for k, spec in specs.items():
-        held = {}
-        for rr in res:
-            block = tuple(rr["coords"][a] for a in spec.values())
-            held.setdefault(block, set()).add(rr["digests"][k])
-        replicated_same &= all(len(d) == 1 for d in held.values())
+        for i in range(LAYOUT_STEPS):
+            held = {}
+            for rr in res:
+                block = tuple(rr["coords"][a] for a in spec.values())
+                held.setdefault(block, set()).add(rr["digests"][i][k])
+            replicated_same &= all(len(d) == 1 for d in held.values())
     sp_size = sizes.get("sp", 1)
+    pp_size = sizes.get("pp", 1)
+    # a rank runs its stage's layers once a microbatch
+    per_step = cfg.n_layers // pp_size * (cfg.n_microbatches
+                                          if pp_size > 1 else 1)
     for rr in res:
         c = rr["coords"]
         # the causal ring: sp position i attends i + 1 blocks a layer
-        want = {"flash_attention_fwd": cfg.n_layers * LAYOUT_STEPS
+        want = {"flash_attention_fwd": per_step * LAYOUT_STEPS
                 * (c["sp"] + 1 if sp_size > 1 else 1),
                 "xent_fwd": LAYOUT_STEPS if sizes.get("tp", 1) == 1 else 0}
         rel = abs(rr["losses"][0] - rr["cpu_loss"]) / abs(rr["cpu_loss"])
@@ -1636,7 +1704,8 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
             f"{cfg.head_dim} L{cfg.n_layers} F{cfg.d_ff} S{cfg.max_seq} B8 "
             + str(cfg.dtype).split(".")[-1]
             + (f" E{cfg.n_experts} top{cfg.moe_top_k} "
-               f"cf{cfg.capacity_factor}" if moe else ""),
+               f"cf{cfg.capacity_factor}" if moe else "")
+            + (f" M{cfg.n_microbatches}" if pp_size > 1 else ""),
             losses=",".join(f"{x:.6f}" for x in rr["losses"]),
             step_ms=",".join(f"{x:.3f}" for x in rr["step_ms"]),
             cpu_fp32_loss=rr["cpu_loss"], step1_rel=rel,
@@ -1665,8 +1734,8 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
                             f"launch disagrees with the plain version: {kc}")
     # the ranks together ran both ring kinds, and xent where tp is 1
     kinds = {k for rr in res for k in rr["kernel_checks"]}
-    want_kinds = {"ring_diag", "ring_full"} | (
-        {"xent"} if sizes.get("tp", 1) == 1 else set())
+    want_kinds = {"ring_diag"} | ({"ring_full"} if sp_size > 1 else set()) \
+        | ({"xent"} if sizes.get("tp", 1) == 1 else set())
     check(kinds == want_kinds, f"{role}: kernels held on the ranks' inputs "
                                f"{sorted(kinds)}, expected "
                                f"{sorted(want_kinds)}")
@@ -1676,27 +1745,28 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
         fp32_grad_rel_l2=fmt(errs32), fp32_worst=worst32,
         tol_fp32_grad_rel_l2=LAYOUT_FP32_GRAD_TOL,
         bf16_grad_rel_l2=fmt(errs), bf16_worst=worst,
-        tol_bf16_grad_rel_l2=LAYOUT_GRAD_TOL if not moe
+        tol_bf16_grad_rel_l2=LAYOUT_GRAD_TOL if not in_floors
         else f"{LAYOUT_MOE_FLOOR_RATIO} floors",
         one_process_bf16_grad_rel_l2_floor=fmt(floor),
         bf16_grad_floors=fmt(floors),
         bf16_vs_one_process_bf16_rel_l2=fmt(errs_pair),
         bf16_vs_one_process_bf16_floors=fmt(floors_pair),
         tol_vs_one_process_bf16=f"{LAYOUT_MOE_PAIR_RATIO} floors"
-        if moe else "none",
+        if in_floors else "none",
         one_process_bf16_rerouted_tokens=",".join(map(str, rerouted))
         + (f" of {routes32[0].shape[0]}" if routes32 else ""),
         replicated_leaves_bit_identical=replicated_same)
     check(errs32[worst32] <= LAYOUT_FP32_GRAD_TOL,
           f"{role}: fp32 step-1 gradient of {worst32} is {errs32[worst32]} "
           f"off the one-process fp32 gradient")
-    check(moe or errs[worst] <= LAYOUT_GRAD_TOL,
+    check(in_floors or errs[worst] <= LAYOUT_GRAD_TOL,
           f"{role}: bf16 step-1 gradient of {worst} is {errs[worst]} off "
           f"the one-process fp32 gradient")
-    check(not moe or max(floors.values()) <= LAYOUT_MOE_FLOOR_RATIO,
+    check(not in_floors or max(floors.values()) <= LAYOUT_MOE_FLOOR_RATIO,
           f"{role}: bf16 step-1 gradient off the fp32 one by more than "
           f"{LAYOUT_MOE_FLOOR_RATIO} one-process floors: {fmt(floors)}")
-    check(not moe or max(floors_pair.values()) <= LAYOUT_MOE_PAIR_RATIO,
+    check(not in_floors
+          or max(floors_pair.values()) <= LAYOUT_MOE_PAIR_RATIO,
           f"{role}: bf16 step-1 gradient off one process's bf16 one by "
           f"more than {LAYOUT_MOE_PAIR_RATIO} floors: {fmt(floors_pair)}")
     check(replicated_same, f"{role}: replicated leaves differ across the "
@@ -1716,6 +1786,385 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
             check(u["launches"] == 1, f"ulysses: rank {rr['rank']} launched "
                                       f"flash_attn_fwd {u['launches']} times")
     return [rr["launches"] for rr in res]
+
+
+def pipeline_model(torch, dev, dtype):
+    """The flagship at full width as a layer-major model for
+    ``make_pipeline_train_step``: ``layer_fn`` its block, ``loss_fn``
+    ``ln_f``, the tied head (both held fixed) and the fused xent; the
+    seed-0 weights and the seed-0 embedding of the seed-1 tokens.
+    Returns ``(cfg, layer_fn, loss_fn, natural-order layers, batch)``."""
+    import numpy as np
+    from horovod_tpu_torch.models import init_params
+    from horovod_tpu_torch.models.transformer import _block, _rmsnorm
+    from horovod_tpu_torch.ops.xent import fused_softmax_xent
+    cfg = dataclasses.replace(layout_cfg(False), dtype=dtype)
+    p0 = init_params(np.random.RandomState(0), cfg)
+    emb = torch.from_numpy(p0["embed"]).to(dev).to(dtype)
+    ln_f = torch.from_numpy(p0["ln_f"]).to(dev)
+    positions = torch.arange(cfg.max_seq, device=dev)
+    axes = dict.fromkeys(("dp", "pp", "ep", "sp", "tp"))
+
+    def layer_fn(lp, x):
+        return _block(lp, x, positions, cfg, axes)[0]
+
+    def loss_fn(y, t):
+        return fused_softmax_xent(_rmsnorm(y, ln_f) @ emb.T, t).mean()
+
+    layers = {k: v.reshape((cfg.n_layers,) + v.shape[2:])
+              for k, v in p0["layers"].items()}
+    tokens, targets = flagship_batch(cfg)
+    x = torch.nn.functional.embedding(tokens.to(dev), emb)
+    return cfg, layer_fn, loss_fn, layers, (x, targets.to(dev))
+
+
+def pipeline_steps(torch, step, params, opt, batch, record=None):
+    """PIPELINE_STEPS steps: (losses, step ms); the first step's kernel
+    inputs into ``record`` when given."""
+    losses, ms = [], []
+    for i in range(PIPELINE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (record_kernel_inputs(record) if record is not None and i == 0
+              else contextlib.nullcontext()):
+            _, _, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, ms
+
+
+AUTOTUNE_PLANS = (("psum", "none", 64 << 20), ("psum", "int8", 4 << 20),
+                  ("ring", "none", 64 << 20))
+
+
+def single_rank_main(out_dir: str) -> int:
+    """The one-process references of the pipeline phases and [autotune],
+    in an NCCL world of one: the flagship's blocks through
+    ``make_pipeline_train_step`` with pp = 1 (the overlap engine),
+    PIPELINE_STEPS steps in fp32 (losses, final parameters) and in bf16
+    (losses, step ms), and in bf16 on a pipeline rank's share of the work
+    (half the rows, as dp = 2 gives each card, in microbatches of the
+    pipeline's two rows: the t(pp = 1) of the measured bubble); then
+    ``make_overlap_train_step(lm_loss, ..., autotune=...)`` over
+    AUTOTUNE_PLANS until it locks, and a second build over the same cache
+    directory."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.entry import entry
+    from horovod_tpu_torch.models import adamw, lm_loss
+    from horovod_tpu_torch.ops import attention, quantize, xent
+    from horovod_tpu_torch.profile_step import DP_MICRO
+    from horovod_tpu_torch.train.autotune import AutotuneOptions, Plan
+    from horovod_tpu_torch.train.pipeline import make_pipeline_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    dev = hvd.device()
+    mesh = hvd.build_mesh(dp=1)
+    res = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg, layer_fn, loss_fn, layers, batch = pipeline_model(torch, dev,
+                                                               dtype)
+        step = make_pipeline_train_step(
+            layer_fn, loss_fn, n_layers=cfg.n_layers, mesh=mesh, pp=1,
+            n_micro=PIPELINE_MICRO, device=dev)
+        p = step.prepare_params(layers)
+        opt = adamw(p.parameters())
+        res[f"{name}_losses"], res[f"{name}_step_ms"] = pipeline_steps(
+            torch, step, p, opt, batch)
+        if name == "fp32":
+            torch.save({k: v.cpu() for k, v in step.restore_params(p).items()},
+                       os.path.join(out_dir, "single_params.pt"))
+    half = tuple(t[:t.shape[0] // 2] for t in batch)
+    step = make_pipeline_train_step(
+        layer_fn, loss_fn, n_layers=cfg.n_layers, mesh=mesh, pp=1,
+        n_micro=PIPELINE_MICRO // 2, device=dev)
+    p = step.prepare_params(layers)
+    _, res["share_step_ms"] = pipeline_steps(torch, step, p,
+                                             adamw(p.parameters()), half)
+
+    _, (model, tokens, targets) = entry()
+    counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
+                "xent_fwd": xent.xent_fwd_cuda,
+                **{fn.__name__[:-len("_cuda")]: fn
+                   for fn in quantize.LAUNCHERS}}
+    for c in counters.values():
+        c.launches = 0
+    plans = [Plan(b, a, c) for a, c, b in AUTOTUNE_PLANS]
+    with tempfile.TemporaryDirectory(prefix="autotune_") as cache:
+        opts = AutotuneOptions(plans=plans, budget_steps=AUTOTUNE_BUDGET,
+                               steps_per_trial=2, cache_dir=cache,
+                               log_path=os.path.join(cache, "trace.csv"))
+        step = hvd.make_overlap_train_step(lm_loss, mesh, n_micro=DP_MICRO,
+                                           autotune=opts)
+        opt = adamw(model.parameters())
+        losses, ms = [], []
+        t0 = time.perf_counter()
+        while not (step.autotune is not None and step.autotune.done) \
+                and len(losses) < AUTOTUNE_BUDGET + 2:
+            losses.append(float(step(model, opt, (tokens, targets))[2]))
+        search_s = time.perf_counter() - t0
+        ctl = step.autotune
+        res["autotune"] = {
+            "locked": ctl.locked_plan.key if ctl.done else None,
+            "plans": [q.key for q in plans], "trials": ctl.trials,
+            "steps_used": ctl.steps_used, "from_cache": ctl.from_cache,
+            "best_ms": 1e3 * (ctl.best_seconds or float("nan")),
+            "scores_ms": {q.key: 1e3 * v for q, v in ctl._scores.items()},
+            "losses": losses, "search_s": search_s,
+            "launches": {k: c.launches for k, c in counters.items()},
+            "trace_rows": len(open(os.path.join(cache, "trace.csv"))
+                              .read().strip().splitlines()) - 1}
+        warm = hvd.make_overlap_train_step(lm_loss, mesh, n_micro=DP_MICRO,
+                                           autotune=opts)
+        warm(model, opt, (tokens, targets))
+        res["autotune"].update(
+            warm_from_cache=warm.autotune.from_cache,
+            warm_trials=warm.autotune.trials,
+            warm_locked=warm.autotune.locked_plan.key)
+    with open(os.path.join(out_dir, "single.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+def digest_params(params) -> str:
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pipeline_rank_main(out_dir: str, role: str) -> int:
+    """One rank of [pipeline_1f1b] / [pipeline_interleaved]:
+    ``make_pipeline_train_step`` over {pp:2} (gloo, both ranks on
+    ``cuda:0``) with PIPELINE_PHASES[role]'s schedule, PIPELINE_MICRO
+    microbatches and a fused AdamW: PIPELINE_STEPS steps in fp32 (losses;
+    the gathered final parameters), then in bf16 with the kernel counters
+    zeroed just before and read just after (losses, step ms, the inputs
+    of step 1's first kernel launches run again through the kernels and
+    their plain versions), then one step on a NaN batch whose guard
+    decision and update run under ``set_sync_debug_mode("error")`` (the
+    verdict's gloo allreduce over pp excepted: gloo stages CUDA tensors
+    through the host)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import adamw
+    from horovod_tpu_torch.ops import attention, mesh_collectives, xent
+    from horovod_tpu_torch.train import guard
+    from horovod_tpu_torch.train.pipeline import make_pipeline_train_step
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r = hvd.rank()
+    dev = hvd.device()
+    schedule, v = PIPELINE_PHASES[role]
+    mesh = hvd.dp_pp_mesh(pp=2)
+
+    def build(layer_fn, loss_fn, cfg):
+        return make_pipeline_train_step(
+            layer_fn, loss_fn, n_layers=cfg.n_layers, mesh=mesh,
+            schedule=schedule, pp=2, n_micro=PIPELINE_MICRO,
+            virtual_stages=v, device=dev)
+
+    res = {"rank": r, "pp_index": mesh.axis("pp").index}
+    cfg, layer_fn, loss_fn, layers, batch = pipeline_model(torch, dev,
+                                                           torch.float32)
+    step = build(layer_fn, loss_fn, cfg)
+    p = step.prepare_params(layers)
+    res["fp32_losses"], _ = pipeline_steps(torch, step, p,
+                                           adamw(p.parameters()), batch)
+    full = step.restore_params(p)
+    if r == 0:
+        torch.save({k: t.cpu() for k, t in full.items()},
+                   os.path.join(out_dir, "pipeline_params.pt"))
+    del step, p, full
+
+    cfg, layer_fn, loss_fn, layers, batch = pipeline_model(torch, dev,
+                                                           torch.bfloat16)
+    step = build(layer_fn, loss_fn, cfg)
+    p = step.prepare_params(layers)
+    opt = adamw(p.parameters())
+    counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
+                "xent_fwd": xent.xent_fwd_cuda}
+    for c in counters.values():
+        c.launches = 0
+    recorded = {}
+    res["losses"], res["step_ms"] = pipeline_steps(torch, step, p, opt,
+                                                   batch, recorded)
+    res["launches"] = {k: c.launches for k, c in counters.items()}
+    step.flush()
+    res["skipped"] = step.skipped
+    res["kernel_checks"] = kernels_on_rank_inputs(torch, recorded)
+
+    real_apply, real_preduce = guard.guarded_apply, mesh_collectives.preduce
+
+    def gloo_preduce(*a, **kw):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_preduce(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def watched_apply(optimizer, spec, pp_axis=None):
+        mesh_collectives.preduce = gloo_preduce
+        try:
+            with no_host_sync(torch):
+                return real_apply(optimizer, spec, pp_axis)
+        finally:
+            mesh_collectives.preduce = real_preduce
+
+    guard.guarded_apply = watched_apply
+    try:
+        nan_step = build(layer_fn, loss_fn, cfg)
+    finally:
+        guard.guarded_apply = real_apply
+    before = digest_params(p)
+    nan_step(p, opt, (batch[0] * float("nan"), batch[1]))
+    nan_step.flush()
+    res["nan_skipped"] = nan_step.skipped
+    res["nan_unchanged"] = digest_params(p) == before
+    res["digest"] = before
+    res["gloo_host_staged"] = list(mesh_collectives.GLOO_HOST_STAGED)
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+def phase_pipeline(torch, card: str) -> dict:
+    """[pipeline_1f1b], [pipeline_interleaved] and [autotune]: the
+    one-process references (``single_rank_main``, an NCCL world of one on
+    the card), then each pipeline world of two gloo ranks, then every
+    check of the module docstring. Returns each phase's kernel launches
+    per rank."""
+    from horovod_tpu_torch.parallel.pipeline import bubble_fraction
+    from horovod_tpu_torch.train.pipeline import record_measured_bubble
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="single_") as out_dir:
+        _run_gloo_ranks(out_dir, 1, "single", "single", backend="NCCL")
+        with open(os.path.join(out_dir, "single.json")) as f:
+            single = json.load(f)
+        ref_params = torch.load(os.path.join(out_dir, "single_params.pt"))
+    single_s = time.perf_counter() - t0
+    launches = {}
+    t1 = sorted(single["share_step_ms"][1:])[0]
+    for role, (schedule, v) in PIPELINE_PHASES.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=f"{role}_") as out_dir:
+            _run_gloo_ranks(out_dir, 2, role, role)
+            res = []
+            for r in range(2):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    res.append(json.load(f))
+            params = torch.load(os.path.join(out_dir, "pipeline_params.pt"))
+        world_s = time.perf_counter() - t0
+        ref32 = single["fp32_losses"]
+        traj = max(abs(a - b) / abs(b) for a, b in zip(res[0]["fp32_losses"],
+                                                       ref32))
+        perr = {k: rel_l2(params[k], ref_params[k]) for k in ref_params}
+        worst = max(perr, key=perr.get)
+        rel1 = abs(res[0]["losses"][0] - ref32[0]) / abs(ref32[0])
+        tpp = sorted(res[0]["step_ms"][1:])[0]
+        measured = 1.0 - t1 / tpp
+        record_measured_bubble(measured)
+        analytic = bubble_fraction(schedule, 2, PIPELINE_MICRO, v)
+        last = 1        # the last stage's chunk is on pp position 1
+        for rr in res:
+            is_last = rr["pp_index"] == last
+            want = {"flash_attention_fwd": 2 * PIPELINE_MICRO
+                    * PIPELINE_STEPS,
+                    "xent_fwd": PIPELINE_MICRO * PIPELINE_STEPS
+                    if is_last else 0}
+            say(role, rank=rr["rank"], schedule=schedule, pp=2,
+                virtual_stages=v, microbatches=PIPELINE_MICRO,
+                width="V32000 M512 H8x64 L4 F2048 S256 B8 bf16 "
+                      f"(microbatch 2x256)",
+                losses=",".join(f"{x:.6f}" for x in rr["losses"]),
+                fp32_losses=",".join(f"{x:.6f}" for x in rr["fp32_losses"]),
+                step_ms=",".join(f"{x:.3f}" for x in rr["step_ms"]),
+                launches=",".join(f"{k}:{n}" for k, n in
+                                  rr["launches"].items()),
+                want_launches=",".join(f"{k}:{n}" for k, n in want.items()),
+                nan_step_skipped=rr["nan_skipped"],
+                nan_step_params_unchanged=rr["nan_unchanged"],
+                sync_debug_mode="error (guard decision and update)",
+                gloo_host_staged=",".join(rr["gloo_host_staged"]),
+                seconds=rr["seconds"], card=card)
+            check(rr["losses"] == res[0]["losses"]
+                  and rr["fp32_losses"] == res[0]["fp32_losses"],
+                  f"{role}: the ranks report different losses")
+            check(all(map(math.isfinite, rr["losses"]))
+                  and rr["losses"][-1] < rr["losses"][0],
+                  f"{role}: loss did not fall: {rr['losses']}")
+            check(rr["launches"] == want, f"{role}: rank {rr['rank']} "
+                  f"launched {rr['launches']}, expected {want}")
+            check(rr["skipped"] == 0, f"{role}: the guard skipped a clean "
+                                      f"step")
+            check(rr["nan_skipped"] == 1 and rr["nan_unchanged"],
+                  f"{role}: rank {rr['rank']} did not skip the NaN step "
+                  f"({rr['nan_skipped']} skipped, parameters unchanged "
+                  f"{rr['nan_unchanged']})")
+            kinds = set(rr["kernel_checks"])
+            check(kinds == ({"ring_diag", "xent"} if is_last
+                            else {"ring_diag"}),
+                  f"{role}: rank {rr['rank']} held the kernels "
+                  f"{sorted(kinds)} on its inputs")
+            for key, kc in rr["kernel_checks"].items():
+                say(role, rank=rr["rank"], kernel_on_rank_inputs=key,
+                    **{k: val for k, val in kc.items() if k != "ok"},
+                    tol_o_rel=LAYOUT_FLASH_O_TOL,
+                    tol_lse=LAYOUT_FLASH_LSE_TOL,
+                    tol_xent_rel=LAYOUT_XENT_TOL)
+                check(kc["ok"], f"{role}: rank {rr['rank']}'s {key} kernel "
+                                f"launch disagrees with the plain version")
+        check(res[0]["digest"] != res[1]["digest"],
+              f"{role}: both ranks hold the same stage")
+        say(role, ranks=2, world_seconds=world_s,
+            fp32_traj_max_rel=traj, fp32_params_worst_rel_l2=perr[worst],
+            fp32_params_worst=worst, tol_fp32_rel=PIPELINE_FP32_TOL,
+            bf16_step1_vs_one_process_fp32_rel=rel1,
+            tol_bf16_step1_rel=PIPELINE_LOSS_TOL,
+            one_process_fp32_losses=",".join(f"{x:.6f}" for x in ref32),
+            step_ms_best=tpp, pp1_share_step_ms_best=t1,
+            one_process_pp1_full_batch_step_ms=",".join(
+                f"{x:.3f}" for x in single["bf16_step_ms"]),
+            measured_bubble=measured, analytic_bubble=analytic, card=card)
+        check(traj <= PIPELINE_FP32_TOL, f"{role}: fp32 losses "
+              f"{res[0]['fp32_losses']} are {traj} off one process's {ref32}")
+        check(perr[worst] <= PIPELINE_FP32_TOL, f"{role}: final {worst} is "
+              f"{perr[worst]} off one process's")
+        check(rel1 <= PIPELINE_LOSS_TOL, f"{role}: step 1's bf16 loss is "
+              f"{rel1} off one process's fp32 loss")
+        launches[role] = [rr["launches"] for rr in res]
+
+    a = single["autotune"]
+    say("autotune", plans=",".join(a["plans"]), locked=a["locked"],
+        trials=a["trials"], steps_used=a["steps_used"],
+        budget=AUTOTUNE_BUDGET, scores_ms=",".join(
+            f"{k}:{v:.3f}" for k, v in a["scores_ms"].items()),
+        best_ms=a["best_ms"], search_seconds=a["search_s"],
+        csv_rows=a["trace_rows"], warm_from_cache=a["warm_from_cache"],
+        warm_trials=a["warm_trials"], warm_locked=a["warm_locked"],
+        losses=",".join(f"{x:.6f}" for x in a["losses"]),
+        launches=",".join(f"{k}:{n}" for k, n in a["launches"].items()),
+        single_process_seconds=single_s, card=card)
+    check(a["locked"] in a["plans"] and a["trials"] > 0
+          and a["steps_used"] <= AUTOTUNE_BUDGET and not a["from_cache"],
+          f"autotune: the search did not lock a plan within its budget: {a}")
+    check(a["warm_from_cache"] and a["warm_trials"] == 0
+          and a["warm_locked"] == a["locked"],
+          f"autotune: the second build did not lock {a['locked']} from the "
+          f"cache with zero trials: {a}")
+    check(all(map(math.isfinite, a["losses"]))
+          and a["losses"][-1] < a["losses"][0],
+          f"autotune: the loss did not fall during the search: {a['losses']}")
+    launches["autotune"] = [a["launches"]]
+    return launches
 
 
 def gloo_rank_main(out_dir: str) -> int:
@@ -1974,9 +2423,26 @@ def main() -> int:
     check(all(got["xent_fwd"] > 0 for got in layout_launches["moe_ep_sp"]),
           "xent_fwd did not run on every [moe_ep_sp] rank")
 
+    # -- pipeline parallelism: the composed dp x pp step over {pp:2} (two
+    # gloo ranks on the card), its one-process references, and the plan
+    # search of the overlap step
+    pp_launches = {"pp_tp": layout_launches["pp_tp"],
+                   **phase_pipeline(torch, card)}
+    for k in kernels:
+        k["pp_launches"] = {ph: [got.get(k["name"], 0) for got in ranks]
+                            for ph, ranks in pp_launches.items()}
+    for ph in ("pp_tp", *PIPELINE_PHASES):
+        check(all(got["flash_attention_fwd"] > 0
+                  for got in pp_launches[ph]),
+              f"flash_attn_fwd did not run on every rank of [{ph}]")
+    for ph in PIPELINE_PHASES:
+        check(any(got["xent_fwd"] > 0 for got in pp_launches[ph]),
+              f"xent_fwd did not run on the last stage of [{ph}]")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "dp_launches", "telemetry_launches", "layout_launches")
+            "dp_launches", "telemetry_launches", "layout_launches",
+            "pp_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1989,6 +2455,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         role = sys.argv[3] if len(sys.argv) > 3 else "dp"
-        sys.exit(gloo_rank_main(sys.argv[2]) if role == "dp"
-                 else layout_rank_main(sys.argv[2], role))
+        if role == "dp":
+            sys.exit(gloo_rank_main(sys.argv[2]))
+        if role == "single":
+            sys.exit(single_rank_main(sys.argv[2]))
+        if role in PIPELINE_PHASES:
+            sys.exit(pipeline_rank_main(sys.argv[2], role))
+        sys.exit(layout_rank_main(sys.argv[2], role))
     sys.exit(main())

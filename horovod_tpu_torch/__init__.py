@@ -14,6 +14,14 @@ int8 quantization on the wire and error feedback
 softmax cross-entropy, the block-int8 codec and the fused dequantize +
 optimizer apply (see ``ops/`` and ``csrc/``).
 
+The flagship runs over any ``{dp, pp, tp, sp, ep}`` mesh: the layers split
+into pipeline stages over pp (GPipe), tensor, sequence (ring or Ulysses)
+and expert parallelism inside each stage. ``make_pipeline_train_step``
+trains a layer-major model dp x pp under a ``ParallelPlan`` (GPipe, 1F1B
+or interleaved 1F1B), and ``autotune=`` searches the plan (or the
+communication plan of ``make_overlap_train_step``) by measured step time,
+with a persistent plan cache.
+
 The train loop is observed by ``TelemetryCallback`` (step time, tokens/s,
 MFU against the card's peak, the goodput ledger, the step time series,
 anomaly detectors, ``torch.profiler`` captures); ``metrics_snapshot()``
@@ -52,8 +60,13 @@ from horovod_tpu_torch.ops.reduce_op import (  # noqa: F401
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshSpec,
     build_mesh,
+    dp_pp_mesh,
     mesh_axis_size,
     shard_batch,
+)
+from horovod_tpu_torch.parallel.plan import (  # noqa: F401
+    ParallelPlan,
+    compile_step_with_plan,
 )
 from horovod_tpu_torch.train import (  # noqa: F401
     DistributedOptimizer,
@@ -67,6 +80,16 @@ from horovod_tpu_torch.train import (  # noqa: F401
     fused_sgd,
     make_overlap_train_step,
     pipelined_accumulate,
+)
+from horovod_tpu_torch.train.autotune import (  # noqa: F401
+    AutotuneOptions,
+    Plan as AutotunePlan,
+    make_parallel_train_step,
+    parallel_candidate_plans,
+)
+from horovod_tpu_torch.train.guard import GuardSpec  # noqa: F401
+from horovod_tpu_torch.train.pipeline import (  # noqa: F401
+    make_pipeline_train_step,
 )
 from horovod_tpu_torch.train.callbacks import (  # noqa: F401
     StepTimer,

@@ -62,7 +62,11 @@ class Config:
     The rendezvous is rank 0's TCP store; a launched world of more than one
     process needs its address and port. ``log_level`` and
     ``log_hide_timestamp`` set the rank-tagged logger
-    (``common/logging.py``)."""
+    (``common/logging.py``). The mesh-path plan search
+    (``train/autotune.py``): ``autotune_mesh`` makes it the default of
+    the ``autotune=`` seams, ``autotune_budget_steps`` bounds it,
+    ``autotune_cache_dir`` persists the winner (empty: off) and
+    ``autotune_log`` names its CSV trace (``<log>.mesh.csv``)."""
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     bucket_bytes: int = 0
@@ -74,6 +78,10 @@ class Config:
     rendezvous_port: int = 0
     log_level: str = "WARNING"
     log_hide_timestamp: bool = False
+    autotune_mesh: bool = False
+    autotune_budget_steps: int = 48
+    autotune_cache_dir: str = ""
+    autotune_log: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -98,6 +106,12 @@ class Config:
             log_level=env_str("LOG_LEVEL", d.log_level).upper(),
             log_hide_timestamp=env_bool("LOG_HIDE_TIME",
                                         d.log_hide_timestamp),
+            autotune_mesh=env_bool("AUTOTUNE_MESH"),
+            autotune_budget_steps=env_int("AUTOTUNE_BUDGET_STEPS",
+                                          d.autotune_budget_steps),
+            autotune_cache_dir=env_str("AUTOTUNE_CACHE_DIR",
+                                       d.autotune_cache_dir),
+            autotune_log=env_str("AUTOTUNE_LOG"),
         )
 
 

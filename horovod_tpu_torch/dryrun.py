@@ -5,18 +5,17 @@ Mirrors ``__graft_entry__._run_layout`` and ``dryrun_multichip``: each
 layout builds its mesh, the seed-0 parameters sliced for this rank, the
 seed-1 batch sharded over ``(dp, ep)`` and sp, and takes one AdamW step of
 ``make_train_step`` (forward, backward, gradient sync, optimizer). The
-tiny flagship (V 256, M 64, 4 heads, L 4, F 128, fp32) at B 8, S 32, with
-``n_experts=4`` for the MoE layouts, as in the JAX table.
+tiny flagship (V 256, M 64, 4 heads, L 4, F 128, fp32, 2 pipeline
+microbatches) at B 8, S 32, with ``n_experts=4`` and one microbatch for
+the MoE layouts, as in the JAX table; a layout with pp runs GPipe.
 
 ``dryrun_multichip(n)`` starts the world as ``n`` processes of this module
 (``python -m horovod_tpu_torch.dryrun --rank``), each with its launcher
 identity and a timeout, kills them on the way out, and returns rank 0's
 loss per layout. ``device="cpu"`` runs gloo on the CPU (the tests); on the
 card each rank drives its own card over NCCL, or, on a host with fewer
-cards than ranks, all ranks share ``cuda:0`` over gloo. A layout with
-pp > 1 (``{dp:2, pp:2, tp:2}`` at n = 8) arrives with the pp slice: the
-pp-free layouts run, then the call raises ``NotImplementedError`` naming
-it. The JAX package's ``_scaling_curve`` stays with the benchmark.
+cards than ranks, all ranks share ``cuda:0`` over gloo. The JAX
+package's ``_scaling_curve`` stays with the benchmark.
 """
 
 from __future__ import annotations
@@ -36,8 +35,6 @@ import torch
 
 B, S = 8, 32
 TIMEOUT_S = 300.0
-_PP_SLICE = ("the pp slice of the port (parallel/pipeline.py, "
-             "parallel/plan.py, train/pipeline.py, train/autotune.py)")
 
 
 def layouts(n: int) -> List[Tuple[bool, Dict[str, int]]]:
@@ -58,7 +55,8 @@ def layouts(n: int) -> List[Tuple[bool, Dict[str, int]]]:
 def _cfg(moe: bool):
     from horovod_tpu_torch.entry import _flagship_cfg
     cfg = _flagship_cfg(tiny=True)
-    return dataclasses.replace(cfg, n_experts=4) if moe else cfg
+    return dataclasses.replace(cfg, n_experts=4, n_microbatches=1) if moe \
+        else cfg
 
 
 def _run_layout(moe: bool, sizes: Dict[str, int], dev) -> float:
@@ -92,8 +90,6 @@ def _rank_main(n: int, out: str) -> int:
         else hvd.device()
     losses = {}
     for moe, sizes in layouts(n):
-        if sizes.get("pp", 1) > 1:
-            continue
         losses[json.dumps(sizes)] = _run_layout(moe, sizes, dev)
         if hvd.rank() == 0:
             print(f"[dryrun] mesh={sizes} moe={moe} loss={losses[json.dumps(sizes)]:.6f}",
@@ -112,11 +108,10 @@ def _free_port() -> int:
 
 def dryrun_multichip(n: int, device: Optional[str] = None,
                      timeout: float = TIMEOUT_S) -> Dict[str, float]:
-    """Run every pp-free layout of the table for ``n`` ranks (one train
-    step each) and return ``{json mesh sizes: loss}`` (rank 0's; every
-    rank checks its own loss is finite). Raises if a rank fails or outlives
-    ``timeout``, and ``NotImplementedError`` after the run when the table
-    holds a pp layout."""
+    """Run every layout of the table for ``n`` ranks (one train step each)
+    and return ``{json mesh sizes: loss}`` (rank 0's; every rank checks
+    its own loss is finite). Raises if a rank fails or outlives
+    ``timeout``."""
     cpu = device == "cpu"
     if not cpu and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
@@ -175,13 +170,6 @@ def dryrun_multichip(n: int, device: Optional[str] = None,
                                f"{timeout:.0f} s):\n" + "\n".join(failed))
         with open(os.path.join(out, "rank0.json")) as f:
             losses = json.load(f)
-    pp = [sizes for _, sizes in layouts(n) if sizes.get("pp", 1) > 1]
-    if pp:
-        err = NotImplementedError(
-            f"dryrun_multichip({n}) ran {sorted(losses)}; the layouts "
-            f"{pp} have pp > 1, which arrives with {_PP_SLICE}")
-        err.losses = losses
-        raise err
     return losses
 
 

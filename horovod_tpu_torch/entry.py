@@ -25,7 +25,7 @@ def _flagship_cfg(tiny: bool = False) -> TransformerConfig:
     if tiny:
         return TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
                                  n_layers=4, d_ff=128, max_seq=64,
-                                 dtype=torch.float32)
+                                 n_microbatches=2, dtype=torch.float32)
     return TransformerConfig(vocab_size=32000, d_model=512, n_heads=8,
                              n_layers=4, d_ff=2048, max_seq=256,
                              dtype=torch.bfloat16)

@@ -2,19 +2,28 @@
 embedding logits, over the dp, tp, sp and ep axes of a process mesh.
 
 Mirrors ``horovod_tpu/models/transformer.py``: ``TransformerConfig``,
-``init_params`` (same numpy draw order and ``[pp, L/pp, ...]`` layout,
-here with pp = 1, so both packages give bit-identical arrays for a seed),
+``init_params`` (same numpy draw order and ``[pp, L/pp, ...]`` layout, so
+both packages give bit-identical arrays for a seed and a stage count),
 ``param_shardings``/``shard_params`` (as a per-rank slicer,
 :func:`shard_state_dict`), ``_embed_lookup``, ``_sharded_softmax_xent``,
 ``_softmax_xent``, ``_rmsnorm``, ``_rope``, ``_attention_block``,
-``_dense_ffn``, ``_moe_ffn``, ``_block``, ``forward_loss_spmd`` without
-pp, ``data_sharding_spec``, ``_grad_sync``, ``make_forward``,
-``make_grad_fn``, ``make_train_step`` and ``init_opt_state``.
+``_dense_ffn``, ``_moe_ffn``, ``_block``, ``_stage_fn_factory``,
+``forward_loss_spmd``, ``data_sharding_spec``, ``_grad_sync``,
+``make_forward``, ``make_grad_fn``, ``make_train_step`` and
+``init_opt_state``.
 
 Each rank holds its shards (:class:`Transformer` built with the mesh):
-the vocab rows of the embedding, the heads of ``wq/wk/wv/wo`` and the
-columns of ``w1/w2`` over tp, the experts over ep. The batch is split
-over ``(dp, ep)`` and the sequence over sp (``shard_batch``). Attention
+the layers of its pipeline stage (``[pp, L/pp, ...]`` over pp), the vocab
+rows of the embedding, the heads of ``wq/wk/wv/wo`` and the columns of
+``w1/w2`` over tp, the experts over ep. The batch is split over
+``(dp, ep)`` and the sequence over sp (``shard_batch``); pp and tp ranks
+take the same block. Under pp the local batch splits into
+``cfg.n_microbatches`` microbatches that run GPipe
+(:func:`~horovod_tpu_torch.parallel.pipeline.gpipe`): stage 0 does the
+embedding lookup, every stage its layers (the MoE aux loss carried beside
+the activation), the last stage ``ln_f``, the tied head and the loss,
+which :func:`~horovod_tpu_torch.ops.autograd_collectives.replicate_from_stage`
+puts on every stage (its backward reaches the last stage once). Attention
 takes :func:`~horovod_tpu_torch.parallel.ring_attention.ring_attention_spmd`
 under sp and :func:`ops.attention.attend` otherwise, the loss the sharded
 xent algebra under tp and :func:`ops.xent.fused_softmax_xent` otherwise:
@@ -28,11 +37,12 @@ backward) where a replicated activation enters a sharded product and "g"
 (psum forward, identity backward) where partial sums become replicated;
 the loss is averaged over the data axes with a backward that gives each
 rank its share, and :func:`_grad_sync` sums each leaf's gradient over the
-data axes it is replicated over. So a leaf replicated over an axis gets
-bit-identical gradients on every rank of it, and a sharded leaf the slice
-of the full gradient. The JAX package's gradients are ``dp·ep·sp`` times
-that, and partial for the replicated leaves under tp (ROADMAP Queue 3).
-pp arrives with the pipeline slice; a mesh with pp > 1 raises.
+data axes it is replicated over, and the embedding and ``ln_f`` over pp
+(the lookup's part on stage 0, the head's on the last). So a leaf
+replicated over an axis gets bit-identical gradients on every rank of it,
+and a sharded leaf the slice of the full gradient. The JAX package's
+gradients are ``dp·ep·sp`` times that, and partial for the replicated
+leaves under tp (ROADMAP Queue 3); its pp gradient is the true one.
 
 State: the JAX package threads a params pytree and an optax state through
 pure functions and donates them to each step. Here the parameters live in
@@ -61,6 +71,7 @@ from horovod_tpu_torch.ops.mesh_collectives import start_preduce
 from horovod_tpu_torch.ops.xent import fused_softmax_xent
 from horovod_tpu_torch.parallel.mesh import data_sharding_spec  # noqa: F401
 from horovod_tpu_torch.parallel.moe import moe_layer_spmd
+from horovod_tpu_torch.parallel.pipeline import gpipe
 from horovod_tpu_torch.parallel.ring_attention import ring_attention_spmd
 
 DATA_AXES = ("dp", "ep", "sp")
@@ -77,6 +88,7 @@ class TransformerConfig:
     n_experts: int = 0          # 0 → dense FFN; >0 → MoE every layer
     moe_top_k: int = 2
     capacity_factor: float = 1.25
+    n_microbatches: int = 1     # pipeline microbatches (per pp > 1)
     dtype: torch.dtype = torch.bfloat16        # compute
     param_dtype: torch.dtype = torch.float32   # storage
 
@@ -85,36 +97,47 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
-def _param_shapes(cfg: TransformerConfig) -> Dict:
-    """Full shapes in the JAX package's layout, layers stacked ``[1, L,
-    ...]``. The order of ``layers`` is the order ``init_params`` draws
-    them in."""
+def _param_shapes(cfg: TransformerConfig, n_stages: int = 1) -> Dict:
+    """Full shapes in the JAX package's layout, layers stacked ``[pp,
+    L/pp, ...]``. The order of ``layers`` is the order ``init_params``
+    draws them in."""
     L, M, HD, F_ = cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
-    layers = {"ln1": (1, L, M), "wq": (1, L, M, HD), "wk": (1, L, M, HD),
-              "wv": (1, L, M, HD), "wo": (1, L, HD, M), "ln2": (1, L, M)}
+    if L % n_stages:
+        raise ValueError(f"{L} layers do not split into {n_stages} stages")
+    P, L = n_stages, L // n_stages
+    layers = {"ln1": (P, L, M), "wq": (P, L, M, HD), "wk": (P, L, M, HD),
+              "wv": (P, L, M, HD), "wo": (P, L, HD, M), "ln2": (P, L, M)}
     if cfg.n_experts > 0:
         E = cfg.n_experts
-        layers.update({"router": (1, L, M, E), "we1": (1, L, E, M, F_),
-                       "we2": (1, L, E, F_, M)})
+        layers.update({"router": (P, L, M, E), "we1": (P, L, E, M, F_),
+                       "we2": (P, L, E, F_, M)})
     else:
-        layers.update({"w1": (1, L, M, F_), "w2": (1, L, F_, M)})
+        layers.update({"w1": (P, L, M, F_), "w2": (P, L, F_, M)})
     return {"embed": (cfg.vocab_size, M), "ln_f": (M,), "layers": layers}
 
 
-# which dims of each leaf are split over which axis (``param_shardings``)
+# which dims of each leaf are split over which axis (``param_shardings``);
+# every layer leaf also splits its stage dim 0 over pp
 _SPECS = {"embed": {0: "tp"}, "wq": {3: "tp"}, "wk": {3: "tp"},
           "wv": {3: "tp"}, "wo": {2: "tp"}, "w1": {3: "tp"}, "w2": {2: "tp"},
           "we1": {2: "ep", 4: "tp"}, "we2": {2: "ep", 3: "tp"}}
 
 
+def _stages(mesh) -> int:
+    return mesh.shape["pp"] if mesh is not None else 1
+
+
 def param_shardings(cfg: TransformerConfig, mesh=None) -> Dict[str, Dict]:
     """``state_dict`` key → ``{dim: axis name}`` of the live axes ``mesh``
-    splits that leaf over, as the JAX ``param_shardings`` (vocab rows over
-    tp, heads and F columns over tp, experts over ep; the norms and the
-    router replicated)."""
+    splits that leaf over, as the JAX ``param_shardings`` (the layers'
+    stage dim over pp, vocab rows over tp, heads and F columns over tp,
+    experts over ep; the norms and the router replicated within a
+    stage)."""
     out = {}
     for key in flatten_dotted(_param_shapes(cfg)):
-        spec = _SPECS.get(key.split(".")[-1], {})
+        spec = dict(_SPECS.get(key.split(".")[-1], {}))
+        if key.startswith("layers."):
+            spec = {0: "pp", **spec}
         out[key] = {d: a for d, a in spec.items()
                     if mesh is not None and mesh.shape[a] > 1}
     return out
@@ -123,7 +146,8 @@ def param_shardings(cfg: TransformerConfig, mesh=None) -> Dict[str, Dict]:
 def _local_shapes(cfg: TransformerConfig, mesh=None) -> Dict[str, tuple]:
     specs = param_shardings(cfg, mesh)
     out = {}
-    for key, shape in flatten_dotted(_param_shapes(cfg)).items():
+    for key, shape in flatten_dotted(_param_shapes(
+            cfg, _stages(mesh))).items():
         shape = list(shape)
         for d, a in specs[key].items():
             n = mesh.shape[a]
@@ -135,13 +159,15 @@ def _local_shapes(cfg: TransformerConfig, mesh=None) -> Dict[str, tuple]:
     return out
 
 
-def init_params(rng: np.random.RandomState, cfg: TransformerConfig) -> Dict:
+def init_params(rng: np.random.RandomState, cfg: TransformerConfig,
+                n_stages: int = 1) -> Dict:
     """Numpy parameters, bit-identical to the JAX package's ``init_params``
-    with one stage: norms are ones, each matrix is ``randn * 1/sqrt(fan_in)``
-    (``shape[-2]``; the router ``randn * 0.02``) in the order wq, wk, wv,
-    wo, then router, we1, we2 or w1, w2, then the embedding is
-    ``randn * 0.02``."""
-    shapes = _param_shapes(cfg)
+    with ``n_stages`` stages (layers ``[n_stages, L/n_stages, ...]``):
+    norms are ones, each matrix is ``randn * 1/sqrt(fan_in)`` (``shape[-2]``;
+    the router ``randn * 0.02``) in the order wq, wk, wv, wo, then router,
+    we1, we2 or w1, w2, then the embedding is ``randn * 0.02``. The draws
+    do not depend on ``n_stages``: any layout reshapes to any other."""
+    shapes = _param_shapes(cfg, n_stages)
 
     def w(name, shape):
         if name.startswith("ln"):
@@ -168,10 +194,16 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
 def shard_state_dict(full_sd: Mapping[str, torch.Tensor],
                      cfg: TransformerConfig, mesh) -> Dict[str, torch.Tensor]:
     """This rank's slice of every leaf of a full ``state_dict``: block
-    ``axis.index`` of each dim ``param_shardings`` splits."""
+    ``axis.index`` of each dim ``param_shardings`` splits. Layer leaves in
+    any stage layout (``[s, L/s, ...]``, e.g. ``init_params(rng, cfg)``'s
+    ``[1, L, ...]``) are first viewed as the mesh's ``[pp, L/pp, ...]``:
+    stage ``i`` holds layers ``i·L/pp`` to ``(i+1)·L/pp − 1``."""
     specs = param_shardings(cfg, mesh)
+    shapes = flatten_dotted(_param_shapes(cfg, _stages(mesh)))
     out = {}
     for key, t in full_sd.items():
+        if key.startswith("layers.") and tuple(t.shape) != shapes[key]:
+            t = t.reshape(shapes[key])
         for d, a in specs[key].items():
             ax = mesh.axis(a)
             n = t.shape[d] // ax.size
@@ -301,17 +333,58 @@ def _block(p, x, positions, cfg: TransformerConfig, axes):
 
 def _mesh_axes(mesh) -> Dict[str, Optional[object]]:
     """The mesh's axes that run collectives (size > 1, as the JAX
-    ``_axis_live``), by name, else None. pp is the next slice."""
+    ``_axis_live``), by name, else None."""
     if mesh is None:
-        return {a: None for a in ("dp", "ep", "sp", "tp")}
-    if mesh.shape["pp"] > 1:
-        raise NotImplementedError(
-            f"pp={mesh.shape['pp']}: pipeline parallelism arrives with the "
-            f"pp slice of the port (parallel/pipeline.py, parallel/plan.py, "
-            f"train/pipeline.py, train/autotune.py); this slice runs dp, tp, "
-            f"sp and ep")
+        return {a: None for a in ("dp", "pp", "ep", "sp", "tp")}
     return {a: mesh.axis(a) if mesh.shape[a] > 1 else None
-            for a in ("dp", "ep", "sp", "tp")}
+            for a in ("dp", "pp", "ep", "sp", "tp")}
+
+
+def _stage_fn_factory(model: "Transformer", positions, axes):
+    """``stage_fn(h, aux, params=...) -> (h, aux)``: this rank's ``L/pp``
+    blocks on one microbatch; ``params`` are the layer leaves (``[1, L/pp,
+    ...]``, in ``model.layers`` order). The MoE aux loss rides beside the
+    activation: each stage adds the sum of its blocks' aux over the
+    number of layers, as the JAX ``_stage_fn_factory`` does."""
+    cfg = model.cfg
+    names = list(model.layers.keys())
+    n_local = model.layers[names[0]].shape[1]
+
+    def stage_fn(h, aux, params):
+        lp = dict(zip(names, params))
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n_local):
+            h, a = _block({n: lp[n][0, i] for n in names}, h, positions, cfg,
+                          axes)
+            total = total + a
+        return h, aux + total / max(cfg.n_layers, 1)
+
+    return stage_fn, [model.layers[n] for n in names]
+
+
+def _pipelined_layers(model: "Transformer", x, positions, axes, B: int):
+    """GPipe over pp: stage 0's embedded ``x [B', S', M]`` in, on the last
+    stage ``(h [B', S', M], aux)`` out (aux the mean over microbatches),
+    elsewhere a zero pair tied to the pipeline's backward."""
+    cfg = model.cfg
+    pp = axes["pp"]
+    M = cfg.n_microbatches
+    if B % M:
+        raise ValueError(f"local batch {B} not divisible by "
+                         f"n_microbatches={M}")
+    stage_fn, params = _stage_fn_factory(model, positions, axes)
+    dev = params[0].device
+    first = None
+    if pp.index == 0:
+        first = (x.reshape((M, B // M) + tuple(x.shape[1:])),
+                 torch.zeros(M, dtype=torch.float32, device=dev))
+    S_, Md = positions.shape[0], cfg.d_model
+    spec = [((B // M, S_, Md), cfg.dtype), ((), torch.float32)]
+    hs, auxs = gpipe(stage_fn, params, first, pp, M, spec)
+    if pp.index == pp.size - 1:
+        return hs.reshape((B,) + tuple(hs.shape[2:])), auxs.mean()
+    zero = hs.float() * 0 + auxs * 0
+    return zero, zero
 
 
 def forward_loss_spmd(model: "Transformer", tokens: torch.Tensor,
@@ -327,21 +400,34 @@ def forward_loss_spmd(model: "Transformer", tokens: torch.Tensor,
     positions = (sp.index * S if sp is not None else 0) + torch.arange(
         S, device=tokens.device)
     emb = model.embed.to(cfg.dtype)
-    x = _embed_lookup(emb, tokens, tp)                            # [B,S,M]
-    per_layer = {name: p.flatten(0, 1).unbind(0)
-                 for name, p in model.layers.items()}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _block({name: ps[i] for name, ps in per_layer.items()}, x,
-                      positions, cfg, axes)
-        aux = aux + a
-    aux = aux / max(cfg.n_layers, 1)
-    x = _rmsnorm(x, model.ln_f)
-    logits = ac.copy_to(x, tp) @ emb.T                        # [B,S,V/tp]
-    loss = _softmax_xent(logits, targets, tp).mean()
-    # the layout's loss: every data shard's, averaged (ep subdivides the
-    # batch, see data_sharding_spec); each rank's backward is its share
+    pp = axes["pp"]
+    first = pp is None or pp.index == 0
+    last = pp is None or pp.index == pp.size - 1
+    x = _embed_lookup(emb, tokens, tp) if first else None         # [B,S,M]
+    if pp is not None:
+        x, aux = _pipelined_layers(model, x, positions, axes,
+                                   tokens.shape[0])
+    else:
+        per_layer = {name: p.flatten(0, 1).unbind(0)
+                     for name, p in model.layers.items()}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.n_layers):
+            x, a = _block({name: ps[i] for name, ps in per_layer.items()}, x,
+                          positions, cfg, axes)
+            aux = aux + a
+        aux = aux / max(cfg.n_layers, 1)
+    if last:
+        x = _rmsnorm(x, model.ln_f)
+        logits = ac.copy_to(x, tp) @ emb.T                    # [B,S,V/tp]
+        loss = _softmax_xent(logits, targets, tp).mean()
+    else:
+        loss = x
+    # the layout's loss: the last stage's, on every stage; every data
+    # shard's, averaged (ep subdivides the batch, see data_sharding_spec);
+    # each rank's backward is its share
     both = torch.stack([loss, aux.to(loss.dtype)])
+    if pp is not None:
+        both = ac.replicate_from_stage(both, pp, pp.size - 1)
     for a in DATA_AXES:
         both = ac.mean_from(both, axes[a])
     return both[0], both[1]
@@ -363,7 +449,6 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mesh = mesh
-        _mesh_axes(mesh)
         dev = resolve_device(device)
         shapes = _local_shapes(cfg, mesh)
 
@@ -414,7 +499,6 @@ def _check_model(model: Transformer, cfg: TransformerConfig, mesh) -> None:
 def make_forward(cfg: TransformerConfig, mesh=None) -> Callable:
     """``fwd(model, tokens, targets) -> loss + 0.01 * aux``, the layout's,
     without gradients; used by :func:`horovod_tpu_torch.entry.entry`."""
-    _mesh_axes(mesh)
 
     @torch.no_grad()
     def fwd(model: Transformer, tokens, targets):
@@ -430,12 +514,14 @@ def lm_loss(model: Transformer, batch) -> torch.Tensor:
     ``(tokens, targets)`` batch, the ``loss_fn`` of
     :func:`~horovod_tpu_torch.train.overlap.make_overlap_train_step`,
     whose engines average over dp themselves: a model built with a mesh
-    with a live data axis would average once more, and raises."""
+    with a live data axis would average once more, and one with pp would
+    leave the embedding's stage parts unsummed (the pipeline's step is
+    ``make_train_step``, or ``make_pipeline_train_step``); both raise."""
     if model.mesh is not None and any(model.mesh.shape[a] > 1
-                                      for a in DATA_AXES):
+                                      for a in DATA_AXES + ("pp",)):
         raise ValueError(f"lm_loss takes a model without live data axes "
-                         f"(its mesh is {model.mesh}); the dp engines "
-                         f"average over dp themselves")
+                         f"and without pp (its mesh is {model.mesh}); the "
+                         f"dp engines average over dp themselves")
     loss, aux = model(*batch)
     return loss + 0.01 * aux
 
@@ -446,12 +532,15 @@ def _grad_sync(named_grads: Mapping[str, torch.Tensor],
     replicated over; the axes its own sharding names (ep on the experts)
     keep the shard's gradient, as the JAX ``_grad_sync``. With the loss's
     backward giving each rank its share, the sums are the layout's
-    gradient. Per axis, every leaf's reduction is issued before the first
+    gradient. Under pp the leaves every stage holds (the embedding, whose
+    lookup is stage 0's and whose tied head is the last stage's, and
+    ``ln_f``) are summed over pp too; a stage that did not use one gives
+    zeros. Per axis, every leaf's reduction is issued before the first
     wait, in one order on every rank."""
     axes = _mesh_axes(mesh)
     specs = param_shardings(cfg, mesh)
     out = dict(named_grads)
-    for a in DATA_AXES:
+    for a in DATA_AXES + ("pp",):
         if axes[a] is None:
             continue
         keys = [k for k in out if a not in specs[k].values()]
@@ -466,13 +555,15 @@ def make_grad_fn(cfg: TransformerConfig, mesh=None) -> Callable:
     the gradient of the layout's ``loss + 0.01 * aux``. Tokens/targets are
     this rank's block (``shard_batch``); loss and aux come back as the
     layout's, equal on every rank."""
-    _mesh_axes(mesh)
 
     def grad_fn(model: Transformer, tokens, targets):
         _check_model(model, cfg, mesh)
         loss, aux = forward_loss_spmd(model, tokens, targets, mesh)
         names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss + 0.01 * aux, params)
+        grads = torch.autograd.grad(loss + 0.01 * aux, params,
+                                    allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, params)]
         grads = _grad_sync(dict(zip(names, grads)), cfg, mesh)
         return loss.detach(), aux.detach(), grads
 
@@ -497,13 +588,19 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     the layout's. ``scan_steps > 1`` chains that many steps on the SAME
     batch (:func:`scan_util.multi_step`); loss and aux are the last
     step's."""
-    _mesh_axes(mesh)
+    pipelined = _stages(mesh) > 1
 
     def one_step(model: Transformer, optimizer, tokens, targets):
         _check_model(model, cfg, mesh)
         optimizer.zero_grad(set_to_none=True)
         loss, aux = forward_loss_spmd(model, tokens, targets, mesh)
         (loss + 0.01 * aux).backward()
+        if pipelined:
+            # a stage that did not use a leaf (ln_f before the last) still
+            # takes part in its sum over pp
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         named = {k: p for k, p in model.named_parameters()
                  if p.grad is not None}
         synced = _grad_sync({k: p.grad for k, p in named.items()}, cfg, mesh)

@@ -22,6 +22,11 @@ mathematically correct transpose instead:
 * :func:`all_to_all`: the tiled all-to-all forward, the all-to-all with
   ``split_dim`` and ``concat_dim`` swapped backward.
 * :func:`pmax`: gradient-free (the xent shift stops its gradient first).
+* :func:`replicate_from_stage` (the pipeline's loss): the value of one
+  position on every rank forward (the masked psum), the cotangent of the
+  source position alone backward, delivered once: the JAX package's
+  ``replicate_from_stage``. :func:`psum_cotangent` is the JAX name of
+  :func:`copy_to` (identity forward, psum backward).
 
 Every function takes an :class:`~horovod_tpu_torch.parallel.mesh.Axis`,
 or ``None``; an axis of ``None`` or of size 1 is the identity, as the JAX
@@ -88,6 +93,19 @@ class _AllToAll(torch.autograd.Function):
                 None)
 
 
+class _ReplicateFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, src):
+        ctx.axis, ctx.src = axis, src
+        mine = x if axis.index == src else torch.zeros_like(x)
+        return mc.preduce(mine, axis, ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.axis.index == ctx.src else torch.zeros_like(g),
+                None, None)
+
+
 def reduce_from(x: torch.Tensor, axis) -> torch.Tensor:
     """"g": ``psum`` forward, identity backward."""
     return _ReduceFrom.apply(x, axis, 1) if live(axis) else x
@@ -118,6 +136,17 @@ def all_to_all(x: torch.Tensor, axis, split_dim: int, concat_dim: int
     ``j``, received blocks concatenated along ``concat_dim``."""
     return _AllToAll.apply(x, axis, split_dim, concat_dim) if live(axis) \
         else x
+
+
+def replicate_from_stage(x: torch.Tensor, axis, src: int) -> torch.Tensor:
+    """Position ``src``'s ``x`` on every rank of the axis (the masked
+    psum: the others add zeros, so the value is exact); backward gives the
+    source its own cotangent and every other position zero, so a loss
+    replicated this way and differentiated on every rank counts once."""
+    return _ReplicateFrom.apply(x, axis, src) if live(axis) else x
+
+
+psum_cotangent = copy_to
 
 
 def pmax(x: torch.Tensor, axis) -> torch.Tensor:

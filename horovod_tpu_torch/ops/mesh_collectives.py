@@ -282,22 +282,35 @@ def pring_shift(x: torch.Tensor, axis, shift: int = 1) -> torch.Tensor:
     if shift % n == 0:
         return x.clone()
     out = torch.empty_like(x)
-    _exchange(x.contiguous(), axis.ranks[(r + shift) % n], out,
-              axis.ranks[(r - shift) % n], axis.group)
+    exchange([(x, axis.ranks[(r + shift) % n])],
+             [(out, axis.ranks[(r - shift) % n])], axis.group)
     return out
 
 
-def _exchange(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
-              group) -> None:
-    staged = _host_staged("send_recv", send, group)
-    buf = torch.empty_like(recv, device="cpu") if staged else recv
-    works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send.cpu() if staged else send, dst, group),
-        dist.P2POp(dist.irecv, buf, src, group)])
-    for w in works:
+def exchange(sends, recvs, group) -> None:
+    """Point-to-point sends and receives issued together and waited on:
+    ``sends`` of ``(tensor, dst)``, ``recvs`` of ``(buffer, src)`` (world
+    ranks); each buffer holds its message on return. Two ranks that
+    exchange several messages list them in the same order on both sides
+    (sends in the sender's order are received in the receiver's). Under
+    gloo, CUDA tensors go through the host (``GLOO_HOST_STAGED``)."""
+    if not sends and not recvs:
+        return
+    ops, staged = [], []
+    for t, dst in sends:
+        t = t.contiguous()
+        ops.append(dist.P2POp(dist.isend, t.cpu() if _host_staged(
+            "send_recv", t, group) else t, dst, group))
+    for buf, src in recvs:
+        if _host_staged("send_recv", buf, group):
+            host = torch.empty_like(buf, device="cpu")
+            staged.append((buf, host))
+            buf = host
+        ops.append(dist.P2POp(dist.irecv, buf, src, group))
+    for w in dist.batch_isend_irecv(ops):
         w.wait()
-    if staged:
-        recv.copy_(buf)
+    for buf, host in staged:
+        buf.copy_(host)
 
 
 def pring_allreduce(x: torch.Tensor, axis, op: ReduceOp = ReduceOp.SUM
@@ -323,11 +336,12 @@ def pring_allreduce(x: torch.Tensor, axis, op: ReduceOp = ReduceOp.SUM
     # right neighbour, which folds it into the same chunk index; after n−1
     # steps rank r owns the reduced chunk (r+1) mod n
     for s in range(n - 1):
-        _exchange(chunks[(r - s) % n], right, moved, left, axis.group)
+        exchange([(chunks[(r - s) % n], right)], [(moved, left)], axis.group)
         chunks[(r - s - 1) % n] += moved
     # allgather: pass each completed chunk once around the ring
     for s in range(n - 1):
-        _exchange(chunks[(r + 1 - s) % n], right, moved, left, axis.group)
+        exchange([(chunks[(r + 1 - s) % n], right)], [(moved, left)],
+                 axis.group)
         chunks[(r - s) % n] = moved
     out = chunks.reshape(-1)
     if pad:

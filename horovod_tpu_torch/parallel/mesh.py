@@ -100,6 +100,9 @@ class Mesh:
             tuple(self.shape[a] for a in AXIS_ORDER))
         self._axes = {name: self._make_axis(name) for name in AXIS_ORDER}
         self._splits: Dict[tuple, object] = {}
+        # the axes whose groups ran a collective before their first batched
+        # p2p exchange (parallel/pipeline.py)
+        self.p2p_ready: set = set()
 
     def _lines(self, name: str) -> List[List[int]]:
         """Every run of ranks along axis ``name`` (the other coordinates
@@ -153,6 +156,15 @@ def build_mesh(spec: Optional[MeshSpec] = None, **axis_sizes: int) -> Mesh:
     elif axis_sizes:
         raise ValueError("Pass either a MeshSpec or keyword sizes, not both.")
     return Mesh(spec.resolve(size()))
+
+
+def dp_pp_mesh(dp: int = -1, pp: int = 1) -> Mesh:
+    """The two-axis dp x pp mesh of pipelined data-parallel training:
+    ``dp`` replicas each running a ``pp``-deep pipeline; ``dp=-1``
+    absorbs the remaining ranks (``dp_pp_mesh(pp=4)`` on 8 ranks is 2x4).
+    pp is the inner axis, so a pipeline's stages are neighbouring ranks.
+    Collective, as :func:`build_mesh`."""
+    return build_mesh(MeshSpec(dp=dp, pp=pp))
 
 
 def mesh_axis_size(mesh: Mesh, axis: str) -> int:

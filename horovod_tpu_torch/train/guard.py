@@ -9,7 +9,9 @@ cap), ``resolve_spec``, ``grads_ok``, ``guarded_apply`` and
 skips (``flush()`` drains the last one) on
 ``hvd_guard_skipped_steps_total`` with a ``guard_skip`` flight event, as
 the JAX ``GuardObserver`` does. One scalar, the fp32 sum of the squared
-post-sync gradients (replicated across dp, so no collective), decides.
+post-sync gradients (replicated across dp, so no collective), decides;
+under pipeline parallelism it is summed over pp, so that every stage
+skips or applies together.
 
 As the JAX step does, ``guarded_apply`` decides on the device, with no
 host sync. A fused torch Adam/AdamW (``models.adamw``) takes the verdict
@@ -65,16 +67,24 @@ def resolve_spec(guard) -> GuardSpec:
     raise TypeError(f"guard must be None/bool/GuardSpec, got {guard!r}")
 
 
-def grads_ok(grads: Iterable[torch.Tensor], spec: GuardSpec) -> torch.Tensor:
+def grads_ok(grads: Iterable[torch.Tensor], spec: GuardSpec,
+             pp_axis=None) -> torch.Tensor:
     """The verdict, a bool tensor on the gradients' device: the fp32 sum of
     squared gradients is finite, and under ``max_norm**2`` when a cap is
-    set. Sum-of-squares overflow counts as a spike."""
+    set. Sum-of-squares overflow counts as a spike. ``pp_axis`` (a mesh
+    :class:`~horovod_tpu_torch.parallel.mesh.Axis`) sums the scalar over
+    the pipeline's stages, which hold different gradients, so that every
+    stage reaches the same verdict; the sum stays on the device."""
     sq = None
     for g in grads:
         s = g.float().square().sum()
         sq = s if sq is None else sq + s
-    if sq is None:
+    live_pp = pp_axis is not None and pp_axis.size > 1
+    if sq is None and not live_pp:
         return torch.tensor(True)
+    if live_pp:
+        from horovod_tpu_torch.ops.mesh_collectives import preduce
+        sq = preduce(sq if sq is not None else torch.zeros(()), pp_axis)
     ok = torch.isfinite(sq)
     if spec.max_norm > 0:
         # filled on the device: a host scalar copied in would sync
@@ -219,19 +229,20 @@ class Verdict:
     __bool__ = settle
 
 
-def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec
-                  ) -> Verdict:
+def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec,
+                  pp_axis=None) -> Verdict:
     """Step ``optimizer`` on its parameters' gradients where the verdict
     holds, and keep the old parameters and state where it fails (a
     skipped step, not a zero update), decided on the device as the JAX
     ``guarded_apply`` does. A fused torch Adam/AdamW is given the verdict
     as ``found_inf`` and skips by itself, with no copy; any other
     optimizer steps, and every device tensor it changed is selected
-    against a copy taken before. Returns the :class:`Verdict`."""
+    against a copy taken before. ``pp_axis`` as in :func:`grads_ok`.
+    Returns the :class:`Verdict`."""
     params = [p for g in optimizer.param_groups for p in g["params"]
               if p.grad is not None]
     with record_function("hvd.guard"):
-        ok = grads_ok([p.grad for p in params], spec)
+        ok = grads_ok([p.grad for p in params], spec, pp_axis)
         if _takes_found_inf(optimizer):
             optimizer.found_inf = (~ok).float()
             saved = None

@@ -417,15 +417,39 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          prescale_factor: float = 1.0,
                          postscale_factor: float = 1.0,
                          process_set: ProcessSet = global_process_set,
-                         axis=None, bucket_bytes: Optional[int] = None):
+                         axis=None, bucket_bytes: Optional[int] = None,
+                         autotune=None):
     """Wrap a torch optimizer with gradient synchronization, or build the
     fused int8 optimizer from ``fused_sgd``/``fused_adam`` and
     ``named_parameters`` (the parameters, named or not). ``axis`` (a
     :class:`~horovod_tpu_torch.parallel.mesh.Axis`) selects the axis
     regime. See the module docstring; the same combinations raise as in
-    the JAX package."""
+    the JAX package.
+
+    ``autotune=True`` (``None``: ``HVD_TPU_AUTOTUNE_MESH``) warm-starts
+    the communication knobs from the plan cache: the parameters'
+    fingerprint is looked up in ``HVD_TPU_AUTOTUNE_CACHE_DIR``, and a hit
+    applies the tuned ``bucket_bytes`` and, when no ``compression`` was
+    given, the tuned codec wrapped in error feedback. A miss keeps the
+    settings; the search that fills the cache is
+    ``make_overlap_train_step(..., autotune=True)``. Adasum and the fused
+    optimizers have no such seam and raise (the env default skips
+    them)."""
     from horovod_tpu_torch.train.fused_apply import (FusedOptimizer,
                                                      FusedOptSpec)
+    env_autotune = False
+    if autotune is None:
+        from horovod_tpu_torch.common.config import get_config
+        autotune = get_config().autotune_mesh
+        env_autotune = bool(autotune)
+    if autotune and (op == ReduceOp.ADASUM
+                     or isinstance(optimizer, FusedOptSpec)):
+        if not env_autotune:
+            raise ValueError(
+                "autotune= applies to the standard sync path only "
+                "(Adasum has no codec/bucket seam; the fused apply "
+                "pins its own codec)")
+        autotune = False
     if isinstance(optimizer, FusedOptSpec):
         if op == ReduceOp.ADASUM:
             raise ValueError("fused_sgd/fused_adam have no Adasum path")
@@ -456,9 +480,59 @@ def DistributedOptimizer(optimizer, named_parameters=None,
             "op=Adasum arrives with the eager-collectives slice of the port")
     if named_parameters is not None:
         named_parameters = list(named_parameters)
+    if autotune:
+        compression, bucket_bytes = _warm_start(
+            optimizer, named_parameters, compression, bucket_bytes)
     return _wrap(optimizer, named_parameters, compression, op, process_set,
                  axis, prescale_factor, postscale_factor,
                  backward_passes_per_step, bucket_bytes)
+
+
+def _warm_start(optimizer, named_parameters, compression, bucket_bytes):
+    """``(compression, bucket_bytes)`` from the plan cache's entry for
+    these parameters at this world (the launcher's hosts x local split),
+    or as given on a miss; never raises."""
+    try:
+        from horovod_tpu_torch.common.basics import local_size
+        from horovod_tpu_torch.common.topology import (MeshTopology,
+                                                       detect_topology)
+        from horovod_tpu_torch.train.autotune import (PlanCache,
+                                                      plan_fingerprint,
+                                                      resolve_cache_dir,
+                                                      topology_key)
+        cache_dir = resolve_cache_dir(None)
+        if not cache_dir:
+            return compression, bucket_bytes
+        w, ls = _world(), local_size()
+        if ls > 0 and w % ls == 0 and w // ls > 1:
+            topo = MeshTopology(w // ls, ls)
+        else:
+            topo = detect_topology(n=w)
+        if named_parameters is not None:
+            tree = {n: p for n, p in named_parameters}
+        else:
+            tree = [p for g in optimizer.param_groups for p in g["params"]]
+        plan = PlanCache(cache_dir).load(
+            plan_fingerprint(tree, topology_key(topo), w))
+        if plan is None:
+            return compression, bucket_bytes
+        codec = plan.resolve_codec()
+        if codec is not None and compression is Compression.none:
+            # a lossy wire needs the residual carried to converge
+            compression = ErrorFeedback(codec)
+        from horovod_tpu_torch.diagnostics.flight_recorder import \
+            record_event
+        record_event("autotune_warm_start", plan=plan.key)
+        from horovod_tpu_torch.metrics.registry import default_registry
+        default_registry().counter(
+            "hvd_autotune_cache_hits_total",
+            help="runs that started from a cached tuned plan with zero "
+                 "search trials").inc()
+        return compression, plan.bucket_bytes
+    except Exception:  # the warm start is best-effort, never fatal
+        from horovod_tpu_torch.common.logging import get_logger
+        get_logger().debug("autotune warm start failed", exc_info=True)
+        return compression, bucket_bytes
 
 
 # -- distributed_grad -----------------------------------------------------------

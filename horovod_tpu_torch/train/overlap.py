@@ -340,11 +340,26 @@ def make_overlap_train_step(loss_fn: Callable, mesh, axis_name: str = "dp",
     ``HVD_TPU_GUARD`` (default on: non-finite or over-norm gradients skip
     the step, parameters and optimizer state unchanged), and the step is
     then a :class:`~horovod_tpu_torch.train.guard.GuardedStep`; ``False``
-    steps unconditionally. ``autotune`` raises ``NotImplementedError``
-    until the plan search is ported."""
+    steps unconditionally.
+
+    ``autotune`` (``True``, an ``AutotuneOptions`` or a ``Plan``; ``None``
+    reads ``HVD_TPU_AUTOTUNE_MESH``) hands the communication knobs to the
+    plan search (:func:`~horovod_tpu_torch.train.autotune.
+    make_autotuned_train_step`): the knobs given here are its baseline
+    candidate, and the returned step searches, locks and then serves the
+    winner (a warm plan cache locks it on the first call)."""
+    if autotune is None:
+        from horovod_tpu_torch.common.config import get_config
+        autotune = get_config().autotune_mesh or None
     if autotune:
-        raise NotImplementedError(
-            "autotune= arrives with the port of train/autotune.py")
+        from horovod_tpu_torch.train.autotune import \
+            make_autotuned_train_step
+        return make_autotuned_train_step(
+            loss_fn, mesh, axis_name, autotune=autotune, n_micro=n_micro,
+            op=op, bucket_bytes=bucket_bytes, compression=compression,
+            ring=ring, algorithm=algorithm, topology=topology,
+            small_floor=small_floor, overlap=overlap, sync=sync,
+            guard=guard)
     axis = mesh.axis(axis_name)
     gspec = resolve_spec(guard)
     kw = dict(axis=axis, op=op, bucket_bytes=bucket_bytes,

@@ -499,7 +499,74 @@ def test_ring_attention_kernel_matches_plain_ring_on_gloo(dev, tmp_path,
         assert int(r[f"launches_{ref}"]) == 0
 
 
+# -- a 1F1B pipeline over NCCL, one rank a card ---------------------------------
+
+PP_L, PP_D, PP_STEPS = 4, 64, 3
+
+
+def _pp_inputs():
+    import numpy as np
+    rng = np.random.RandomState(0)
+    w = (rng.randn(PP_L, PP_D, PP_D) * 0.3).astype(np.float32)
+    x = rng.randn(16, PP_D).astype(np.float32)
+    t = rng.randn(16, PP_D).astype(np.float32)
+    return w, x, t
+
+
+def _w_pp_nccl():
+    """One rank of the ``pp_nccl`` world: ``make_pipeline_train_step`` with
+    the 1F1B schedule over {pp:2}, NCCL, this rank's card; three SGD steps'
+    losses and the gathered final weights."""
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.train.pipeline import make_pipeline_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = hvd.device()
+    w, x, t = _pp_inputs()
+    step = make_pipeline_train_step(
+        lambda lp, h: torch.tanh(h @ lp["w"]),
+        lambda y, tgt: ((y - tgt) ** 2).mean(), n_layers=PP_L,
+        mesh=hvd.dp_pp_mesh(pp=2), schedule="1f1b", pp=2, n_micro=4)
+    p = step.prepare_params({"w": w})
+    opt = torch.optim.SGD(p.parameters(), lr=0.1)
+    batch = (torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev))
+    losses = [float(step(p, opt, batch)[2]) for _ in range(PP_STEPS)]
+    return {"losses": np.array(losses),
+            "w": step.restore_params(p)["w"].cpu().numpy()}
+
+
+def test_pipeline_1f1b_over_nccl_matches_one_process(tmp_path):
+    """Two cards, one NCCL rank each: the 1F1B step's three losses and
+    final weights equal plain SGD on the sequential model in fp32 on the
+    CPU (1e-5 relative, the order of sums aside)."""
+    import numpy as np
+    from torch_port_worker import spawn_world
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ranks = spawn_world(__file__, "pp_nccl", 2, tmp_path,
+                        {"HOROVOD_TPU_OPERATIONS": "NCCL"}, timeout=300)
+    w, x, t = _pp_inputs()
+    wt = torch.from_numpy(w).requires_grad_()
+    opt = torch.optim.SGD([wt], lr=0.1)
+    ref = []
+    for _ in range(PP_STEPS):
+        opt.zero_grad()
+        h = torch.from_numpy(x)
+        for i in range(PP_L):
+            h = torch.tanh(h @ wt[i])
+        loss = ((h - torch.from_numpy(t)) ** 2).mean()
+        loss.backward()
+        opt.step()
+        ref.append(float(loss))
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], ref, rtol=1e-5)
+        np.testing.assert_allclose(r["w"], wt.detach().numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
 if __name__ == "__main__":
     import sys
     from torch_port_worker import worker_main
-    sys.exit(worker_main({"ring": _w_ring}, sys.argv[1:]))
+    sys.exit(worker_main({"ring": _w_ring, "pp_nccl": _w_pp_nccl},
+                         sys.argv[1:]))

@@ -1,8 +1,9 @@
 """``horovod_tpu_torch.dryrun.dryrun_multichip`` on the CPU: one train step
 per layout of the JAX dry-run table, in gloo worlds of 2, 4 and 8
-processes. Each pp-free layout's loss is the JAX package's at the same
-layout (1e-4); the pp layout of n = 8 raises, naming the pp slice, after
-the MoE layout beside it ran."""
+processes. Each layout's loss is the JAX package's (1e-4): a dense
+layout without pp equals JAX dp=1's, the pp layout of n = 8
+(``{dp:2, pp:2, tp:2}``, GPipe over two microbatches) and the MoE
+layouts JAX's at the same layout."""
 
 import json
 
@@ -26,8 +27,8 @@ def _jax_loss(moe, sizes):
         cfg = dataclasses.replace(cfg, n_experts=4, n_microbatches=1)
     n = int(np.prod(list(sizes.values())))
     mesh = build_mesh(**sizes, devices=jax.devices()[:n])
-    params = shard_params(init_params(np.random.RandomState(0), cfg, 1), cfg,
-                          mesh)
+    params = shard_params(init_params(np.random.RandomState(0), cfg,
+                                      sizes.get("pp", 1)), cfg, mesh)
     rng = np.random.RandomState(1)
     tokens = rng.randint(0, cfg.vocab_size, (B, S))
     targets = np.roll(tokens, -1, 1)
@@ -39,15 +40,12 @@ def _jax_loss(moe, sizes):
 
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_dryrun_runs_every_pp_free_layout(n):
-    if any(s.get("pp", 1) > 1 for _, s in layouts(n)):
-        with pytest.raises(NotImplementedError, match="pp slice") as err:
-            dryrun_multichip(n, device="cpu")
-        losses = err.value.losses
-    else:
-        losses = dryrun_multichip(n, device="cpu")
-    free = [(moe, s) for moe, s in layouts(n) if s.get("pp", 1) == 1]
-    assert sorted(losses) == sorted(json.dumps(s) for _, s in free)
-    for moe, sizes in free:
-        want = _jax_loss(moe, sizes if moe else {"dp": 1})
+    """Every layout of the table runs, the pp one of n = 8 included (the
+    name is from before the pipeline slice)."""
+    losses = dryrun_multichip(n, device="cpu")
+    assert sorted(losses) == sorted(json.dumps(s) for _, s in layouts(n))
+    for moe, sizes in layouts(n):
+        pp = sizes.get("pp", 1) > 1
+        want = _jax_loss(moe, sizes if moe or pp else {"dp": 1})
         np.testing.assert_allclose(losses[json.dumps(sizes)], want,
                                    rtol=1e-4, err_msg=str(sizes))

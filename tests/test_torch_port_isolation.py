@@ -236,6 +236,32 @@ def test_parallel_axes_modules_import_and_export():
     assert horovod_tpu_torch.shard_batch is mesh.shard_batch
 
 
+def test_pipeline_modules_import_and_export(no_cuda):
+    """The pipeline slice's modules stand alone: each has its docstring,
+    the package exports the pipeline plane under the JAX package's names,
+    and the composed step refuses to drift onto the CPU without being
+    asked."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.parallel import pipeline, plan
+    from horovod_tpu_torch.train import autotune
+    from horovod_tpu_torch.train import pipeline as train_pipeline
+    for m in (pipeline, plan, autotune, train_pipeline):
+        assert m.__doc__
+    assert horovod_tpu_torch.make_pipeline_train_step is \
+        train_pipeline.make_pipeline_train_step
+    assert horovod_tpu_torch.ParallelPlan is plan.ParallelPlan
+    assert horovod_tpu_torch.AutotunePlan is autotune.Plan
+    assert parallel.pipeline_1f1b_apply is pipeline.pipeline_1f1b_apply
+
+    class Mesh:
+        shape = {"dp": 1, "pp": 1, "ep": 1, "sp": 1, "tp": 1}
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        horovod_tpu_torch.make_pipeline_train_step(
+            lambda p, x: x, lambda y, t: y.sum(), n_layers=2, mesh=Mesh(),
+            autotune=False)
+
+
 def test_dryrun_without_device_raises_without_cuda(no_cuda):
     from horovod_tpu_torch.dryrun import dryrun_multichip
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -293,3 +293,55 @@ def test_jax_tp2_sharded_leaves_twice_and_norms_wrong():
         ratio = float(a @ b / (a @ a))
         resid = np.linalg.norm(b - ratio * a) / np.linalg.norm(b)
         assert resid > 0.1, (k, ratio, resid)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pp_layout(sizes):
+    """The JAX flagship at a layout with pp (two microbatches, the layers
+    drawn in ``[pp, L/pp, ...]``): (loss, flat grads viewed ``[1, L,
+    ...]``)."""
+    from horovod_tpu.models import (init_params, make_grad_fn, shard_batch,
+                                    shard_params)
+    from horovod_tpu.parallel.mesh import build_mesh
+    sizes = dict(sizes)
+    n = int(np.prod(list(sizes.values())))
+    cfg = dataclasses.replace(jax_cfg(False), n_microbatches=2)
+    mesh = build_mesh(**sizes, devices=jax.devices()[:n])
+    params = shard_params(init_params(np.random.RandomState(0), cfg,
+                                      sizes["pp"]), cfg, mesh)
+    tokens, targets = batch(cfg.vocab_size)
+    tok, tgt = shard_batch(jnp.asarray(tokens), jnp.asarray(targets), mesh)
+    loss, _, grads = jax.jit(make_grad_fn(cfg, mesh))(params, tok, tgt)
+    flat = _flat(jax.device_get(grads))
+    return float(loss), {k: v.reshape((1, -1) + v.shape[2:])
+                         if k.startswith("layers.") else v
+                         for k, v in flat.items()}
+
+
+def _ratio_residual(ref, got):
+    a, b = ref.ravel(), got.ravel()
+    ratio = float(a @ b / (a @ a))
+    return ratio, np.linalg.norm(b - ratio * a) / np.linalg.norm(b)
+
+
+def test_jax_pp2_gradient_is_the_dp1_one_and_tp_faults_persist():
+    """The JAX oracle of the pipeline slice: at ``{pp:2}`` the JAX
+    flagship's loss and every gradient leaf equal dp=1's (least-squares
+    ratio 1, residual at most 1e-6 of the leaf), so its pp gradient is
+    the true one; at ``{pp:2, tp:2}`` the tp faults above persist: the
+    tp-sharded leaves 2.0x, the norms no multiple of dp=1's."""
+    one = jax_layout(False, (("dp", 1),))
+    pp = jax_pp_layout((("pp", 2),))
+    assert abs(one[0] - pp[0]) < 1e-5
+    for k, g in one[2].items():
+        ratio, resid = _ratio_residual(g, pp[1][k])
+        assert abs(ratio - 1.0) < 1e-5 and resid <= 1e-6, (k, ratio, resid)
+    pptp = jax_pp_layout((("pp", 2), ("tp", 2)))
+    assert abs(one[0] - pptp[0]) < 1e-5
+    for k in ("embed", "layers.wq", "layers.wk", "layers.wv", "layers.wo",
+              "layers.w1", "layers.w2"):
+        np.testing.assert_allclose(pptp[1][k], 2.0 * one[2][k], rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+    for k in ("layers.ln1", "layers.ln2", "ln_f"):
+        _, resid = _ratio_residual(one[2][k], pptp[1][k])
+        assert resid > 0.1, (k, resid)

@@ -82,6 +82,58 @@ def test_init_params_bit_identical(tiny):
         np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
 
 
+@pytest.mark.parametrize("stages", [1, 2, 4])
+@pytest.mark.parametrize("moe", [False, True])
+def test_init_params_per_stage_bit_identical(stages, moe):
+    """``init_params(rng, cfg, n_stages)`` equals the JAX package's for 1,
+    2 and 4 stages (layers ``[pp, L/pp, ...]``), and every stage layout
+    reshapes to the one-stage draw."""
+    import dataclasses
+    jcfg, tcfg = jax_flagship_cfg(tiny=True), _flagship_cfg(tiny=True)
+    if moe:
+        jcfg = dataclasses.replace(jcfg, n_experts=4)
+        tcfg = dataclasses.replace(tcfg, n_experts=4)
+    ref = _flat(jax_init_params(np.random.RandomState(0), jcfg, stages))
+    got = _flat(init_params(np.random.RandomState(0), tcfg, stages))
+    one = _flat(init_params(np.random.RandomState(0), tcfg))
+    assert list(got) == list(ref)
+    for name in ref:
+        np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+        np.testing.assert_array_equal(got[name].reshape(one[name].shape),
+                                      one[name], err_msg=name)
+
+
+def test_shard_params_takes_any_stage_layout():
+    """A rank of ``{pp:2, tp:2}`` gets the same shards from the JAX
+    ``[2, L/2, ...]`` tree and from the one-stage ``[1, L, ...]`` one: its
+    stage's contiguous layers, sliced over tp (a stand-in mesh: slicing
+    reads only the axes' sizes and positions)."""
+    from types import SimpleNamespace
+    from horovod_tpu_torch.models import shard_params
+    cfg = _flagship_cfg(tiny=True)
+    coords = {"dp": 0, "pp": 1, "ep": 0, "sp": 0, "tp": 1}
+    sizes = {"dp": 1, "pp": 2, "ep": 1, "sp": 1, "tp": 2}
+
+    class Mesh:
+        shape = sizes
+
+        def axis(self, a):
+            return SimpleNamespace(size=sizes[a], index=coords[a])
+
+    staged = shard_params(init_params(np.random.RandomState(0), cfg, 2), cfg,
+                          Mesh())
+    flat = shard_params(init_params(np.random.RandomState(0), cfg), cfg,
+                        Mesh())
+    full = _flat(init_params(np.random.RandomState(0), cfg))
+    for k in staged:
+        torch.testing.assert_close(staged[k], flat[k], rtol=0, atol=0)
+    assert tuple(staged["layers.wq"].shape) == (1, 2, 64, 32)
+    np.testing.assert_array_equal(staged["layers.wq"].numpy()[0],
+                                  full["layers.wq"][0, 2:4, :, 32:])
+    assert tuple(staged["embed"].shape) == (128, 64)
+    assert tuple(staged["ln_f"].shape) == (64,)
+
+
 def test_from_jax_params_carries_every_leaf(setup):
     sd = setup["model"].state_dict()
     flat = _flat(setup["params"])
@@ -183,10 +235,15 @@ def test_step_rejects_a_model_of_another_config(setup):
 
 
 def test_moe_config_raises():
-    """An MoE config builds since the expert-parallel slice; what still
-    raises is a mesh with pp > 1, with a message that names the pp slice
-    (here a stand-in mesh: the check reads its shape first)."""
+    """An MoE config builds (since the expert-parallel slice) and, since
+    the pipeline slice, a mesh with pp > 1 no longer raises: the model
+    holds its stage's ``[1, L/pp, ...]`` layer shards (the embedding and
+    ``ln_f`` whole), and two ``make_train_step`` AdamW steps in a world
+    of two gloo ranks give both stages the same finite, falling loss. (The
+    name is from before the pipeline slice.)"""
     import dataclasses
+    import os
+    import sys
     cfg = dataclasses.replace(_flagship_cfg(tiny=True), n_experts=4)
     model = Transformer(cfg, device="cpu")
     assert tuple(model.layers["we1"].shape) == (1, 4, 4, 64, 128)
@@ -194,10 +251,24 @@ def test_moe_config_raises():
     class PipelineMesh:
         shape = {"dp": 1, "pp": 2, "ep": 1, "sp": 1, "tp": 1}
 
-    with pytest.raises(NotImplementedError, match="pp slice"):
-        Transformer(cfg, device="cpu", mesh=PipelineMesh())
-    with pytest.raises(NotImplementedError, match="pp slice"):
-        make_train_step(cfg, PipelineMesh())
+    staged = Transformer(cfg, device="cpu", mesh=PipelineMesh())
+    assert tuple(staged.layers["we1"].shape) == (1, 2, 4, 64, 128)
+    make_train_step(cfg, PipelineMesh())
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from torch_port_worker import spawn_world
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        ranks = spawn_world(os.path.join(here, "test_torch_port_pipeline.py"),
+                            "moe_pp2", 2, out)
+    for res in ranks:
+        assert tuple(res["shape_layers.we1"]) == (1, 2, 4, 64, 128)
+        assert tuple(res["shape_layers.router"]) == (1, 2, 64, 4)
+        assert tuple(res["shape_embed"]) == (256, 64)
+        np.testing.assert_array_equal(res["losses"], ranks[0]["losses"])
+        assert np.isfinite(res["losses"]).all()
+        assert res["losses"][1] < res["losses"][0]
 
 
 def test_model_and_step_share_one_mesh():
