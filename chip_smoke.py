@@ -155,6 +155,41 @@ The pipeline slice adds four phases:
   steps locks one plan, and a second build over the same cache directory
   locks it with zero trials.
 
+The checkpoint slice adds two phases:
+
+* ``[checkpoint]``: the flagship at full width on the card. Run A feeds a
+  seeded corpus of CKPT_CORPUS batches through ``ShardedDataset`` and
+  ``device_prefetch`` into ``make_train_step``, steps 0 to CKPT_STEPS - 1,
+  under ``CheckpointCallback(every_n_steps=CKPT_EVERY)`` (commits
+  CKPT_COMMITS) and ``TelemetryCallback`` (goodput windows of CKPT_EVERY
+  steps), and ends with ``on_train_end()`` and no state: the writer
+  drains, no final save. Each saved data position is the dataset's cursor
+  less the prefetcher's buffer. Run B starts from other weights, restores
+  the newest commit (CKPT_RESUME) into its model, optimizer and dataset,
+  and runs from ``next_step`` to the end. Checks: run A's commits; the
+  state restored equal to the bit to the state at ``save(CKPT_RESUME)``;
+  run B's batches equal to run A's; run B's losses and final parameters
+  equal to run A's to the bit if a repeat of run A (run A') is bit-equal
+  to A, else within A's distance to A'; ``flash_attn_fwd`` 4 and
+  ``xent_fwd`` 1 launches per forward in both runs; every goodput window
+  books ``checkpoint_stall`` > 0 and closes on its wall time; the cut: run
+  A's whole state saved, then every tensor negated in place on the current
+  stream right after ``save`` returns, restores to the values at the
+  call; the checkpoint's bytes (three fp32 copies of the 29.0 M
+  parameters, plus the step counts) from the manifest. It prints the
+  inline stall of each save, the background write and restore seconds,
+  and the step time fed by ``device_prefetch`` beside steps fed host
+  tensors, in turns, with the card's name and power limit.
+* ``[checkpoint_2rank]``: two gloo ranks of this script on ``cuda:0``
+  (``--gloo-rank DIR checkpoint``): rank 1 starts from other weights and
+  ``BroadcastGlobalVariablesCallback`` makes both ``param_digest`` equal;
+  CKPT_DP_STEPS dp steps; a commit of model and optimizer state in which
+  each rank wrote only its axis-0 slices, which this process restores at
+  world 1 equal to the bit to rank 0's state; ``MetricAverageCallback``
+  averages one value a rank; ``ReplicaCanary`` finds nothing on equal
+  replicas, and after rank 1 moves one element both ranks record the tie
+  (``hvd_canary_divergence_total`` and a ``canary_mismatch`` event).
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -264,6 +299,17 @@ PIPELINE_FP32_TOL = 1e-3
 PIPELINE_LOSS_TOL = 1e-3
 # [autotune]: make_overlap_train_step(autotune=...) over AUTOTUNE_PLANS
 AUTOTUNE_BUDGET = 12
+# [checkpoint]: run A takes steps 0 to CKPT_STEPS - 1 and commits every
+# CKPT_EVERY steps (CheckpointCallback saves at step % every == 0, step 0
+# included); run B resumes from the newest commit, CKPT_RESUME
+CKPT_EVERY = 3
+CKPT_STEPS = 9
+CKPT_COMMITS = [0, 3, 6]
+CKPT_RESUME = 6
+CKPT_CORPUS = 12          # seeded batches: run A takes 9, prefetches 2 more
+CKPT_PREFETCH = 2         # device_prefetch's buffer
+CKPT_PAIRS = 6            # steps fed by device_prefetch / from host, in turns
+CKPT_DP_STEPS = 3         # [checkpoint_2rank]
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2253,6 +2299,452 @@ def gloo_rank_main(out_dir: str) -> int:
     return 0
 
 
+def leaf_bits(t):
+    """A tensor's bytes on the host (bf16 as its 16 bits)."""
+    import torch
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().tobytes()
+
+
+def tree_sha(tree) -> dict:
+    """sha256 of every tensor leaf's bytes, by its key path, and the
+    other leaves as they are (the checkpoint's flatten)."""
+    import torch
+    from horovod_tpu_torch.common.tree import flatten_with_path, keystr
+    return {keystr(p): (hashlib.sha256(leaf_bits(v)).hexdigest()
+                        if isinstance(v, torch.Tensor) else v)
+            for p, v in flatten_with_path(tree)}
+
+
+def ckpt_corpus(cfg):
+    """CKPT_CORPUS seeded batches of the flagship's shape (B 8 at
+    max_seq), each a dict of int64 host tensors."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.entry import BATCH
+    rng = np.random.RandomState(2)
+    toks = rng.randint(0, cfg.vocab_size, (CKPT_CORPUS, BATCH,
+                                           cfg.max_seq + 1))
+    return [{"tokens": torch.from_numpy(t[:, :-1].copy()),
+             "targets": torch.from_numpy(t[:, 1:].copy())} for t in toks]
+
+
+def ckpt_run(torch, cfg, sd, corpus, ckpt_dir, counters, resume=False,
+             capture_at=None):
+    """One run of [checkpoint]: the flagship's AdamW steps from the
+    corpus through ShardedDataset and device_prefetch, under
+    CheckpointCallback (every CKPT_EVERY steps) and TelemetryCallback (the
+    goodput ledger), up to step CKPT_STEPS - 1. ``resume``: first restore
+    the newest commit into a fresh state and go on from ``next_step``.
+    Each saved state's data position is the cursor less the prefetcher's
+    buffer. Returns the run's record; the model and optimizer stay on the
+    card in it."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.checkpoint import (init_optimizer_state,
+                                              load_model_state, model_state,
+                                              optimizer_state)
+    from horovod_tpu_torch.data import ShardedDataset, device_prefetch
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          make_train_step)
+    from horovod_tpu_torch.train.callbacks import CheckpointCallback
+    model = Transformer(cfg)
+    model.load_state_dict(sd)
+    opt = init_opt_state(adamw, model)
+    ds = ShardedDataset(corpus, rank=0, size=1, seed=0)
+    cb = CheckpointCallback(ckpt_dir, every_n_steps=CKPT_EVERY)
+    rec = {"model": model, "opt": opt, "losses": {}, "batches": {},
+           "stalls_ms": []}
+    if resume:
+        init_optimizer_state(opt)
+        like = {"model": model_state(model),
+                "optim": optimizer_state(opt, model),
+                "data": ds.state_dict(), "step": -1}
+        got = cb.on_train_begin(like)
+        # digested now: the loaded optimizer shares these tensors
+        rec["restored"] = tree_sha(got)
+        rec["restore_s"] = cb.store.last_restore_s
+        load_model_state(model, got["model"])
+        opt.load_state_dict(got["optim"])
+        ds.load_state_dict(got["data"])
+    tel = hvd.TelemetryCallback(units_per_step=corpus[0]["tokens"].numel(),
+                                unit="tokens")
+    pf = device_prefetch(ds, buffer_size=CKPT_PREFETCH)
+    step_fn = make_train_step(cfg)
+    rec["first_step"] = cb.next_step
+    for c in counters:
+        c.launches = 0
+    for step in range(cb.next_step, CKPT_STEPS):
+        batch = next(pf)
+        tel.on_step_begin()
+        loss = step_fn(model, opt, batch["tokens"], batch["targets"])[2]
+        rec["losses"][step] = float(loss)
+        tel.on_step_end()
+        rec["batches"][step] = hashlib.sha256(
+            leaf_bits(batch["tokens"]) + leaf_bits(batch["targets"])
+        ).hexdigest()
+        data = ds.state_dict()
+        data["cursor"] -= pf.buffered
+        state = {"model": model_state(model),
+                 "optim": optimizer_state(opt, model),
+                 "data": data, "step": step}
+        cb.on_step_end(step, state)
+        if step % CKPT_EVERY == 0:
+            rec["stalls_ms"].append(1e3 * cb.store.last_stall_s)
+        if step == capture_at:
+            rec["captured"] = tree_sha(state)
+    rec["launches"] = {"flash_attention_fwd": counters[0].launches,
+                       "xent_fwd": counters[1].launches}
+    t0 = time.perf_counter()
+    cb.on_train_end()          # drain the writer, no final save
+    rec["drain_s"] = time.perf_counter() - t0
+    rec["commits"] = cb.store.all_steps()
+    rec["final"] = {k: v.detach().cpu().clone()
+                    for k, v in model.state_dict().items()}
+    cb.close()
+    return rec
+
+
+def ckpt_bytes(manifest) -> int:
+    """The bytes a checkpoint's arrays hold, from its manifest."""
+    import numpy as np
+    from horovod_tpu_torch.checkpoint import format as fmt
+    n = 0
+    for rec in manifest["leaves"]:
+        if rec["kind"] == "array":
+            n += int(np.prod(rec["shape"])) * \
+                fmt.torch_dtype(rec["dtype"]).itemsize
+    return n
+
+
+def phase_checkpoint(torch, cfg, init_sd, counters, card: str) -> dict:
+    """[checkpoint]: the flagship saved asynchronously every CKPT_EVERY
+    steps, killed, resumed from the newest commit with the same data
+    position, held to the uninterrupted run; see the module docstring.
+    Returns the kernels' launches in runs A and B."""
+    import numpy as np
+
+    from horovod_tpu_torch.checkpoint import (ShardedCheckpointer,
+                                              model_state, optimizer_state)
+    from horovod_tpu_torch.checkpoint import format as fmt
+    from horovod_tpu_torch.data import device_prefetch
+    from horovod_tpu_torch.metrics import goodput
+    from horovod_tpu_torch.metrics.registry import default_registry
+    from horovod_tpu_torch.models import from_jax_params, init_params
+    t_phase = time.perf_counter()
+    corpus = ckpt_corpus(cfg)
+    knobs = {"HVD_TPU_GOODPUT_WINDOW": str(CKPT_EVERY),
+             "HVD_TPU_ANOMALY": "0"}
+    with tempfile.TemporaryDirectory(prefix="checkpoint_") as tmp:
+        knobs.update(HVD_TPU_OBS_DIR=os.path.join(tmp, "obs"),
+                     HVD_TPU_PROFILE_DIR=os.path.join(tmp, "profile"))
+        os.environ.update(knobs)
+        reset_observability()
+        a_dir = os.path.join(tmp, "a")
+        run_a = ckpt_run(torch, cfg, init_sd, corpus, a_dir, counters,
+                         capture_at=CKPT_RESUME)
+        windows = list(goodput.ledger().recent)
+        tolerance = goodput.ledger().tolerance
+        reg = default_registry().snapshot()
+        manifest = fmt.read_manifest(a_dir, CKPT_RESUME)
+        n_saves = len(run_a["stalls_ms"])
+        save_s = reg["hvd_checkpoint_save_seconds"]
+        saved_bytes = reg["hvd_checkpoint_save_bytes_total"]["value"]
+        npz_bytes = os.path.getsize(os.path.join(
+            fmt.step_dir(a_dir, CKPT_RESUME), fmt.shard_npz(0)))
+        run_a2 = ckpt_run(torch, cfg, init_sd, corpus,
+                          os.path.join(tmp, "a2"), counters)
+
+        # the cut at full width on the card: every tensor of run A's state
+        # updated in place right after save() returns
+        state = {"model": model_state(run_a["model"]),
+                 "optim": optimizer_state(run_a["opt"], run_a["model"]),
+                 "step": CKPT_STEPS}
+        want = tree_sha(state)
+        tensors = [t for t in run_a["model"].parameters()] + [
+            v for st in run_a["opt"].state.values() for v in st.values()]
+        # what a blocking cut would hold the caller: the same bytes copied
+        # to the host synchronously
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [t.detach().cpu() for t in tensors]
+        blocking_ms = 1e3 * (time.perf_counter() - t0)
+        del host
+        cut = ShardedCheckpointer(os.path.join(tmp, "cut"), rank=0,
+                                  world_size=1)
+        cut.save(CKPT_STEPS, state)     # the writer idle, pinned memory
+        steady_ms = 1e3 * cut.last_stall_s   # cached by earlier saves
+        with torch.no_grad():
+            torch._foreach_mul_(tensors, -1.0)
+        cut.wait()
+        cut_ok = tree_sha(cut.restore(CKPT_STEPS)) == want
+        cut.close()
+        del run_a["model"], run_a["opt"], run_a2["model"], run_a2["opt"]
+
+        other = from_jax_params(init_params(np.random.RandomState(5), cfg))
+        run_b = ckpt_run(torch, cfg, other, corpus, a_dir, counters,
+                         resume=True)
+        restored_ok = run_b["restored"] == run_a["captured"]
+
+        # device_prefetch beside host tensors copied in the step, in turns
+        from horovod_tpu_torch.models import make_train_step
+        step_fn = make_train_step(cfg)
+        model, opt = run_b["model"], run_b["opt"]
+        dev = model.embed.device
+        pf = device_prefetch(iter(corpus * 4), buffer_size=CKPT_PREFETCH)
+        host = iter(corpus * 4)
+        fed = {"prefetch": [], "host": []}
+        for i in range(2 * CKPT_PAIRS):
+            for how in (("prefetch", "host") if i % 2 else
+                        ("host", "prefetch")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if how == "prefetch":
+                    b = next(pf)
+                    tok, tgt = b["tokens"], b["targets"]
+                else:
+                    b = next(host)
+                    tok, tgt = b["tokens"].to(dev), b["targets"].to(dev)
+                float(step_fn(model, opt, tok, tgt)[2])
+                fed[how].append(time.perf_counter() - t0)
+        del run_b["model"], run_b["opt"], model, opt
+        for k in knobs:
+            os.environ.pop(k)
+    reset_observability()
+
+    # A repeat of run A bit-equal to A: B must be A to the bit; else within
+    # the distance between the two runs of A
+    steps_b = sorted(run_b["losses"])
+    repeat_loss = max(abs(run_a2["losses"][s] - run_a["losses"][s])
+                      for s in run_a["losses"])
+    repeat_param = max(max_err(run_a2["final"][k], v)
+                       for k, v in run_a["final"].items())
+    b_loss = max(abs(run_b["losses"][s] - run_a["losses"][s])
+                 for s in steps_b)
+    b_param = max(max_err(run_b["final"][k], v)
+                  for k, v in run_a["final"].items())
+    bit_repeat = repeat_loss == 0.0 and repeat_param == 0.0
+    n_layers = cfg.n_layers
+    want_a = {"flash_attention_fwd": n_layers * CKPT_STEPS,
+              "xent_fwd": CKPT_STEPS}
+    want_b = {"flash_attention_fwd": n_layers * len(steps_b),
+              "xent_fwd": len(steps_b)}
+    closes = [abs(sum(w["seconds"].values()) - w["wall_s"])
+              <= tolerance * w["wall_s"] for w in windows]
+    stall_windows = [w["seconds"]["checkpoint_stall"] for w in windows]
+    say("checkpoint", card=card, width="V32000 M512 H8x64 L4 F2048 S256 B8 "
+        "bf16", steps_a=f"0-{CKPT_STEPS - 1}", commits=run_a["commits"],
+        resumed_from=run_b["first_step"] - 1, steps_b=steps_b,
+        bytes_per_checkpoint=ckpt_bytes(manifest), npz_bytes=npz_bytes,
+        save_bytes_per_save=saved_bytes / max(1, n_saves),
+        inline_stall_ms=",".join(f"{x:.3f}" for x in run_a["stalls_ms"]),
+        idle_writer_stall_ms=steady_ms, blocking_copy_ms=blocking_ms,
+        write_s_mean=save_s["sum"] / max(1, save_s["count"]),
+        write_count=save_s["count"], drain_s=run_a["drain_s"],
+        restore_s=run_b["restore_s"],
+        goodput_checkpoint_stall_s=",".join(f"{x:.6f}"
+                                            for x in stall_windows),
+        books_close=all(closes), restored_equals_cut=restored_ok,
+        cut_under_inplace_update=cut_ok,
+        same_batches=all(run_b["batches"][s] == run_a["batches"][s]
+                         for s in steps_b),
+        repeat_bit_equal=bit_repeat, repeat_loss_dist=repeat_loss,
+        repeat_param_dist=repeat_param, resumed_loss_dist=b_loss,
+        resumed_param_dist=b_param,
+        losses_a=",".join(f"{run_a['losses'][s]:.6f}"
+                          for s in sorted(run_a["losses"])),
+        losses_b=",".join(f"{run_b['losses'][s]:.6f}" for s in steps_b),
+        launches_a=json.dumps(run_a["launches"], separators=(",", ":")),
+        launches_b=json.dumps(run_b["launches"], separators=(",", ":")))
+    say("checkpoint", card=card, step_ms_prefetch_q1_med_q3=quartiles_ms(
+        fed["prefetch"]), step_ms_host_q1_med_q3=quartiles_ms(fed["host"]),
+        pairs=2 * CKPT_PAIRS, seconds=time.perf_counter() - t_phase)
+    check(run_a["commits"] == CKPT_COMMITS,
+          f"checkpoint: run A committed {run_a['commits']}")
+    check(run_b["first_step"] == CKPT_RESUME + 1 and
+          steps_b == list(range(CKPT_RESUME + 1, CKPT_STEPS)),
+          f"checkpoint: run B ran {steps_b}")
+    check(restored_ok, "checkpoint: the restored state is not the state "
+                       f"at save({CKPT_RESUME})")
+    check(cut_ok, "checkpoint: the cut saw an in-place update made after "
+                  "save() returned")
+    check(all(run_b["batches"][s] == run_a["batches"][s] for s in steps_b),
+          "checkpoint: run B's batches differ from run A's")
+    check(all(map(math.isfinite, run_a["losses"].values())),
+          f"checkpoint: losses {run_a['losses']}")
+    if bit_repeat:
+        check(b_loss == 0.0 and b_param == 0.0,
+              f"checkpoint: the resumed run is {b_loss} (loss) and "
+              f"{b_param} (parameters) off run A, which repeats to the bit")
+    else:
+        check(b_loss <= repeat_loss and b_param <= repeat_param,
+              f"checkpoint: the resumed run is {b_loss}/{b_param} off run "
+              f"A, two runs of A {repeat_loss}/{repeat_param}")
+    check(run_a["launches"] == want_a and run_b["launches"] == want_b,
+          f"checkpoint: launches {run_a['launches']} / {run_b['launches']},"
+          f" expected {want_a} / {want_b}")
+    check(len(windows) == CKPT_STEPS // CKPT_EVERY and all(closes)
+          and all(x > 0 for x in stall_windows),
+          f"checkpoint: goodput windows {windows}")
+    want_bytes = 3 * sum(4 * v.numel() for v in init_sd.values())
+    check(want_bytes <= ckpt_bytes(manifest) <= want_bytes + 4096
+          and saved_bytes == n_saves * ckpt_bytes(manifest),
+          f"checkpoint: {ckpt_bytes(manifest)} bytes in the manifest, "
+          f"{saved_bytes} saved over {n_saves}, expected {want_bytes}")
+    return {"checkpoint": [run_a["launches"], run_b["launches"]]}
+
+
+def ckpt_rank_main(out_dir: str) -> int:
+    """One rank of [checkpoint_2rank] (the launcher's identity in the
+    environment): rank 1 starts from other weights, the broadcast callback
+    makes both equal, CKPT_DP_STEPS dp steps of make_train_step, a commit
+    of model and optimizer state (each rank its axis-0 slices), the
+    metric average, and the canary on equal replicas and after rank 1
+    moves one element. Results to ``rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.checkpoint import model_state, optimizer_state
+    from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+    from horovod_tpu_torch.models import (Transformer, adamw, from_jax_params,
+                                          init_params, make_train_step)
+    from horovod_tpu_torch.ops import attention, xent
+    from horovod_tpu_torch.train.callbacks import (
+        BroadcastGlobalVariablesCallback, MetricAverageCallback)
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    r = hvd.rank()
+    cfg = layout_cfg(False)
+    model = Transformer(cfg)
+    model.load_state_dict(from_jax_params(init_params(
+        np.random.RandomState(0 if r == 0 else 7), cfg)))
+    opt = adamw(model.parameters())
+    res = {"rank": r, "digest_before": hvd.param_digest(model)}
+    BroadcastGlobalVariablesCallback(0).on_train_begin(model, opt)
+    res["digest_after"] = hvd.param_digest(model)
+    mesh = hvd.build_mesh(dp=2)
+    tok, tgt = (t.to(hvd.device())
+                for t in hvd.shard_batch(*flagship_batch(cfg), mesh))
+    counters = (attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda)
+    for c in counters:
+        c.launches = 0
+    step = make_train_step(cfg, mesh)
+    losses = [float(step(model, opt, tok, tgt)[2])
+              for _ in range(CKPT_DP_STEPS)]
+    res["launches"] = {"flash_attention_fwd": counters[0].launches,
+                       "xent_fwd": counters[1].launches}
+    res["losses"] = losses
+    state = {"model": model_state(model),
+             "optim": optimizer_state(opt, model), "step": CKPT_DP_STEPS}
+    store = hvd.ShardedCheckpointer(os.path.join(out_dir, "ckpt"),
+                                    commit_timeout_s=GLOO_TIMEOUT_S)
+    store.save(CKPT_DP_STEPS, state, wait=True)
+    res["stall_ms"] = 1e3 * store.last_stall_s
+    res["state_sha"] = tree_sha(state)
+    torch.distributed.barrier()
+    res["avg"] = MetricAverageCallback().on_epoch_end(
+        {"value": float(10 * (r + 1)), "name": f"rank{r}"})
+    canary = hvd.ReplicaCanary(every=1)
+    res["clean_findings"] = len(canary.check(CKPT_DP_STEPS + 1, model))
+    if r == 1:
+        with torch.no_grad():
+            model.embed.view(-1)[0] += 1.0
+    res["odd_findings"] = len(canary.check(CKPT_DP_STEPS + 2, model))
+    reg = hvd.metrics_snapshot()["registry"]
+    res["canary_checks"] = reg["hvd_canary_checks_total"]["value"]
+    res["canary_divergence"] = reg.get(
+        "hvd_canary_divergence_total", {}).get("value", 0.0)
+    res["mismatch_steps"] = [e["step"] for e in recorder().events()
+                             if e["kind"] == "canary_mismatch"]
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+def phase_checkpoint_2rank(torch, card: str) -> dict:
+    """[checkpoint_2rank]: two gloo ranks of this script on cuda:0 (see the
+    module docstring); this process, a world of one, restores their
+    commit and holds it to rank 0's state to the bit."""
+    from horovod_tpu_torch.checkpoint import ShardedCheckpointer
+    from horovod_tpu_torch.checkpoint import format as fmt
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ckpt_2rank_") as out_dir:
+        _run_gloo_ranks(out_dir, 2, "checkpoint", "checkpoint_2rank")
+        res = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        ckpt = os.path.join(out_dir, "ckpt")
+        manifest = fmt.read_manifest(ckpt, CKPT_DP_STEPS)
+        t1 = time.perf_counter()
+        got = ShardedCheckpointer(ckpt, rank=0, world_size=1).restore(
+            CKPT_DP_STEPS)
+        restore_s = time.perf_counter() - t1
+        restored = tree_sha(got)
+    # each rank wrote exactly its axis-0 slice of every array leaf (0-d
+    # leaves: rank 0 whole; a leaf of one row, as the layers' stage dim,
+    # is the last rank's)
+    slices_ok = True
+    for rec in manifest["leaves"]:
+        if rec["kind"] != "array":
+            continue
+        shape = rec["shape"]
+        want = ([(0, [[0, d] for d in shape])] if not shape or not shape[0]
+                else [(r, [[b, e]] + [[0, d] for d in shape[1:]])
+                      for r, (b, e) in enumerate(fmt.shard_bounds(shape[0],
+                                                                  2))
+                      if e > b])
+        got_sh = sorted((s["rank"], s["index"]) for s in rec["shards"])
+        slices_ok &= got_sh == want
+    equal = restored == res[0]["state_sha"]
+    n_layers = layout_cfg(False).n_layers
+    want_l = {"flash_attention_fwd": n_layers * CKPT_DP_STEPS,
+              "xent_fwd": CKPT_DP_STEPS}
+    say("checkpoint_2rank", card=card, ranks=2,
+        digests_before=",".join(str(x["digest_before"]) for x in res),
+        digests_after=",".join(str(x["digest_after"]) for x in res),
+        losses=",".join(f"{x:.6f}" for x in res[0]["losses"]),
+        world_size=manifest["world_size"], own_axis0_slices=slices_ok,
+        world1_restore_equals_rank0=equal, restore_s=restore_s,
+        stall_ms=",".join(f"{x['stall_ms']:.3f}" for x in res),
+        metric_average=",".join(str(x["avg"]["value"]) for x in res),
+        canary_clean_findings=[x["clean_findings"] for x in res],
+        canary_divergence=[x["canary_divergence"] for x in res],
+        canary_mismatch_steps=[x["mismatch_steps"] for x in res],
+        launches=",".join(json.dumps(x["launches"], separators=(",", ":"))
+                          for x in res),
+        rank_seconds=",".join(f"{x['seconds']:.1f}" for x in res),
+        seconds=time.perf_counter() - t0)
+    check(res[0]["digest_before"] != res[1]["digest_before"]
+          and res[0]["digest_after"] == res[1]["digest_after"],
+          "checkpoint_2rank: the broadcast did not make the replicas equal")
+    check(all(x["losses"] == res[0]["losses"] for x in res)
+          and all(map(math.isfinite, res[0]["losses"])),
+          f"checkpoint_2rank: losses {[x['losses'] for x in res]}")
+    check(manifest["world_size"] == 2 and slices_ok,
+          "checkpoint_2rank: the ranks did not write their axis-0 slices")
+    check(equal, "checkpoint_2rank: the world-1 restore differs from rank "
+                 "0's state")
+    check(all(x["avg"] == {"value": 15.0, "name": f"rank{i}"}
+              for i, x in enumerate(res)),
+          f"checkpoint_2rank: metric average {[x['avg'] for x in res]}")
+    for x in res:
+        check(x["clean_findings"] == 0 and x["odd_findings"] == 0
+              and x["canary_checks"] == 2.0
+              and x["canary_divergence"] == 1.0
+              and x["mismatch_steps"] == [CKPT_DP_STEPS + 2],
+              f"checkpoint_2rank: canary on rank {x['rank']}: {x}")
+        check(x["launches"] == want_l,
+              f"checkpoint_2rank: launches {x['launches']}, expected "
+              f"{want_l}")
+    return {"checkpoint_2rank": [x["launches"] for x in res]}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2439,10 +2931,24 @@ def main() -> int:
         check(any(got["xent_fwd"] > 0 for got in pp_launches[ph]),
               f"xent_fwd did not run on the last stage of [{ph}]")
 
+    # -- durable checkpoints: save, kill and resume the flagship on the
+    # card; a two-rank commit restored at world 1, the broadcast, the
+    # metric average and the replica canary
+    ckpt_launches = {**phase_checkpoint(torch, model.cfg, init_sd, counters,
+                                        card),
+                     **phase_checkpoint_2rank(torch, card)}
+    for k in kernels:
+        k["ckpt_launches"] = {ph: [got.get(k["name"], 0) for got in runs]
+                              for ph, runs in ckpt_launches.items()}
+    for ph, runs in ckpt_launches.items():
+        check(all(got["flash_attention_fwd"] > 0 and got["xent_fwd"] > 0
+                  for got in runs), f"a kernel did not run in every run of "
+                                    f"[{ph}]")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
-            "pp_launches")
+            "pp_launches", "ckpt_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2459,6 +2965,8 @@ if __name__ == "__main__":
             sys.exit(gloo_rank_main(sys.argv[2]))
         if role == "single":
             sys.exit(single_rank_main(sys.argv[2]))
+        if role == "checkpoint":
+            sys.exit(ckpt_rank_main(sys.argv[2]))
         if role in PIPELINE_PHASES:
             sys.exit(pipeline_rank_main(sys.argv[2], role))
         sys.exit(layout_rank_main(sys.argv[2], role))

@@ -25,7 +25,11 @@ with a persistent plan cache.
 The train loop is observed by ``TelemetryCallback`` (step time, tokens/s,
 MFU against the card's peak, the goodput ledger, the step time series,
 anomaly detectors, ``torch.profiler`` captures); ``metrics_snapshot()``
-returns the registry all of it writes to.
+returns the registry all of it writes to. A run saves asynchronously and
+resumes through ``ShardedCheckpointer`` (the JAX package's on-disk format,
+read both ways) and ``callbacks.CheckpointCallback``, with its data
+position from ``data.ShardedDataset``'s cursor; ``ReplicaCanary`` and
+``param_digest`` compare the replicas.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
@@ -87,7 +91,11 @@ from horovod_tpu_torch.train.autotune import (  # noqa: F401
     make_parallel_train_step,
     parallel_candidate_plans,
 )
-from horovod_tpu_torch.train.guard import GuardSpec  # noqa: F401
+from horovod_tpu_torch.train.guard import (  # noqa: F401
+    GuardSpec,
+    ReplicaCanary,
+    param_digest,
+)
 from horovod_tpu_torch.train.pipeline import (  # noqa: F401
     make_pipeline_train_step,
 )
@@ -95,3 +103,11 @@ from horovod_tpu_torch.train.callbacks import (  # noqa: F401
     StepTimer,
     TelemetryCallback,
 )
+# Durable sharded checkpoints (Checkpointer is the same class, as in the
+# JAX package) and the training-loop callbacks module
+from horovod_tpu_torch.checkpoint import (  # noqa: F401
+    CheckpointError,
+    ShardedCheckpointer,
+)
+from horovod_tpu_torch.train.checkpoint import Checkpointer  # noqa: F401
+from horovod_tpu_torch.train import callbacks  # noqa: F401

@@ -2,7 +2,7 @@
 
 Mirrors ``horovod_tpu/common/config.py`` (``env_int``/``env_bool``/
 ``env_float``/``env_str``, ``Config``, ``get_config``, ``reset_config``),
-trimmed to the knobs of the data-parallel slice. Every knob is read as
+trimmed to the knobs the port has ported so far. Every knob is read as
 ``HVD_TPU_<NAME>`` first, then ``HOROVOD_<NAME>``.
 """
 
@@ -66,7 +66,13 @@ class Config:
     (``train/autotune.py``): ``autotune_mesh`` makes it the default of
     the ``autotune=`` seams, ``autotune_budget_steps`` bounds it,
     ``autotune_cache_dir`` persists the winner (empty: off) and
-    ``autotune_log`` names its CSV trace (``<log>.mesh.csv``)."""
+    ``autotune_log`` names its CSV trace (``<log>.mesh.csv``). The
+    checkpoint store (``checkpoint/store.py``, read when a store is made):
+    ``checkpoint_max_to_keep`` committed steps kept (0: all),
+    ``checkpoint_commit_timeout_s`` rank 0 waits for every shard marker,
+    ``checkpoint_inflight`` async saves queued before ``save`` blocks, and
+    ``checkpoint_dir`` the directory ``CheckpointCallback`` defaults
+    to."""
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     bucket_bytes: int = 0
@@ -82,6 +88,10 @@ class Config:
     autotune_budget_steps: int = 48
     autotune_cache_dir: str = ""
     autotune_log: str = ""
+    checkpoint_max_to_keep: int = 3
+    checkpoint_commit_timeout_s: float = 120.0
+    checkpoint_inflight: int = 2
+    checkpoint_dir: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -112,6 +122,13 @@ class Config:
             autotune_cache_dir=env_str("AUTOTUNE_CACHE_DIR",
                                        d.autotune_cache_dir),
             autotune_log=env_str("AUTOTUNE_LOG"),
+            checkpoint_max_to_keep=env_int("CHECKPOINT_MAX_TO_KEEP",
+                                           d.checkpoint_max_to_keep),
+            checkpoint_commit_timeout_s=env_float(
+                "CHECKPOINT_COMMIT_TIMEOUT_S", d.checkpoint_commit_timeout_s),
+            checkpoint_inflight=env_int("CHECKPOINT_INFLIGHT",
+                                        d.checkpoint_inflight),
+            checkpoint_dir=env_str("CHECKPOINT_DIR"),
         )
 
 

@@ -28,11 +28,12 @@ attributes EVERY second of job wall time to a closed category set:
                          loudly (flight event + warning), never
                          papered over.
 
-The port has no elastic re-mesh and no checkpoint store yet (ROADMAP
-queue 1, items 7 and 11): nothing calls :func:`note_remesh` or
-:func:`note_checkpoint_stall`, so ``remesh_recovery`` and
-``checkpoint_stall`` read zero until those slices wire their seams in.
-The categories stay, so the books have the JAX package's shape.
+The checkpoint store (``checkpoint/store.py``) feeds
+:func:`note_checkpoint_stall` with the seconds a save or a restore held
+its caller. The port has no elastic re-mesh yet (ROADMAP queue 1 item
+7): nothing calls :func:`note_remesh`, so ``remesh_recovery`` reads zero
+until that slice wires its seam in. The category stays, so the books
+have the JAX package's shape.
 
 Everything is fed from seams that already exist — the StepTimer step
 envelope, the exposed-comm gauge, compile_watch totals, the guard-skip
@@ -163,8 +164,7 @@ class GoodputLedger:
 
     def note_checkpoint_stall(self, seconds: float) -> None:
         """Train-thread seconds blocked on the checkpoint store (inline
-        snapshot, waited save, restore; no caller until the checkpoint
-        slice)."""
+        snapshot, waited save, restore)."""
         with self._lock:
             if self._t_open is not None:
                 self._ckpt += max(0.0, float(seconds))

@@ -462,6 +462,12 @@ class Transformer(nn.Module):
             {name: param(f"layers.{name}")
              for name in _param_shapes(cfg)["layers"]})
 
+    def shard_specs(self) -> Dict[str, Dict]:
+        """``state_dict`` key → ``{dim: axis}`` the model's mesh splits it
+        over (:func:`param_shardings`): what a checkpoint needs to place
+        this rank's blocks in the global leaves."""
+        return param_shardings(self.cfg, self.mesh)
+
     def forward(self, tokens: torch.Tensor, targets: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens/targets ``[B', S']`` → ``(loss, aux)``: the mean token

@@ -1,43 +1,66 @@
-"""Numeric guardrail of the train step: a step whose synchronized gradients
-are non-finite, or over a norm cap, is skipped with the parameters and the
-optimizer state as they were.
+"""Numeric guardrail of the train step, and the cross-replica canary.
 
-Mirrors the grad guard of ``horovod_tpu/train/guard.py``: ``GuardSpec``
-(env defaults: ``HVD_TPU_GUARD`` on, ``HVD_TPU_GUARD_MAX_NORM`` 0 = no
-cap), ``resolve_spec``, ``grads_ok``, ``guarded_apply`` and
-``GuardedStep``, which observes each verdict one step late and counts the
-skips (``flush()`` drains the last one) on
-``hvd_guard_skipped_steps_total`` with a ``guard_skip`` flight event, as
-the JAX ``GuardObserver`` does. One scalar, the fp32 sum of the squared
-post-sync gradients (replicated across dp, so no collective), decides;
-under pipeline parallelism it is summed over pp, so that every stage
-skips or applies together.
+Mirrors ``horovod_tpu/train/guard.py``:
 
-As the JAX step does, ``guarded_apply`` decides on the device, with no
-host sync. A fused torch Adam/AdamW (``models.adamw``) takes the verdict
-as its ``found_inf`` and skips the update itself, step count included.
-Any other optimizer steps, and every device tensor it changed is
-``torch.where``-selected in place against a copy taken before; state that
-lives on the host (a CPU step count, a Python counter, state the step
-created) is put back when the verdict is read one step late, by
-:class:`GuardedStep`, before the next step runs. The verdict reaches the
-host through a pinned copy and an event, not a stream sync. The chaos seam, anomaly escalation
-(``grad_nonfinite`` findings), ``param_digest`` and ``ReplicaCanary``
-arrive with later slices.
+* **Grad guard**: ``GuardSpec`` (env defaults: ``HVD_TPU_GUARD`` on,
+  ``HVD_TPU_GUARD_MAX_NORM`` 0 = no cap, ``HVD_TPU_GUARD_ESCALATE`` 3),
+  ``resolve_spec``, ``grads_ok`` and ``guarded_apply``: a step whose
+  synchronized gradients are non-finite, or over the norm cap, is skipped
+  with the parameters and the optimizer state as they were. One scalar,
+  the fp32 sum of the squared post-sync gradients (replicated across dp,
+  so no collective), decides; under pipeline parallelism it is summed over
+  pp, so that every stage skips or applies together.
+
+  As the JAX step does, ``guarded_apply`` decides on the device, with no
+  host sync. A fused torch Adam/AdamW (``models.adamw``) takes the verdict
+  as its ``found_inf`` and skips the update itself, step count included.
+  Any other optimizer steps, and every device tensor it changed is
+  ``torch.where``-selected in place against a copy taken before; state
+  that lives on the host (a CPU step count, a Python counter, state the
+  step created) is put back when the verdict is read one step late, by
+  :class:`GuardedStep`, before the next step runs. The verdict reaches the
+  host through a pinned copy and an event, not a stream sync.
+* **Skip accounting** (:class:`GuardedStep`, the JAX ``GuardObserver``):
+  every skipped step counts ``hvd_guard_skipped_steps_total`` and lands a
+  ``guard_skip`` flight event; every ``HVD_TPU_GUARD_ESCALATE``-th
+  consecutive skip reports a ``grad_nonfinite`` anomaly finding.
+* **Replica canary** (:class:`ReplicaCanary`): every
+  ``HVD_TPU_CANARY_EVERY`` steps (0 = off), allgather a CRC32 digest
+  (:func:`param_digest`) of a fixed slice of every leaf and flag the odd
+  rank out as a ``replica_divergence`` finding (a tie is counted and
+  recorded as ``canary_mismatch``). It catches compute that went silently
+  wrong on one replica. The digest equals the JAX package's for the same
+  values.
+
+The JAX canary digests whole logical arrays, identical across every
+layout. A port rank holds only its shards, which differ from its tp, pp,
+sp and ep neighbours' by design, so the port compares digests over the dp
+axis group (the replicas of the same shards), and over the world only
+where there is no mesh. The chaos ``grad`` seam (``apply_injection``)
+arrives with the chaos harness (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Iterable, Optional, Tuple
+import zlib
+from typing import Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
-from horovod_tpu_torch.common.config import env_bool, env_float
+from horovod_tpu_torch.checkpoint.format import tensor_storage
+from horovod_tpu_torch.common.config import env_bool, env_float, env_int
+from horovod_tpu_torch.common.tree import nest_dotted, tree_leaves
 
 log = logging.getLogger("horovod_tpu_torch")
+
+#: elements digested per leaf (a FIXED parameter slice — cheap, and enough
+#: that real divergence cannot hide: a replica whose math went wrong
+#: diverges everywhere, not in one element)
+DIGEST_ELEMS_PER_LEAF = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +68,13 @@ class GuardSpec:
     """Resolved guard configuration."""
     enabled: bool = True
     max_norm: float = 0.0        # 0 = finiteness only, no norm cap
+    escalate_after: int = 3      # consecutive skips -> grad_nonfinite
 
     @staticmethod
     def from_env() -> "GuardSpec":
         return GuardSpec(enabled=env_bool("GUARD", True),
-                         max_norm=max(0.0, env_float("GUARD_MAX_NORM", 0.0)))
+                         max_norm=max(0.0, env_float("GUARD_MAX_NORM", 0.0)),
+                         escalate_after=max(1, env_int("GUARD_ESCALATE", 3)))
 
 
 def resolve_spec(guard) -> GuardSpec:
@@ -258,16 +283,167 @@ def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec,
     return Verdict(ok, saved)
 
 
+# -- replica canary -----------------------------------------------------------
+
+def param_digest(tree, elems_per_leaf: int = DIGEST_ELEMS_PER_LEAF) -> int:
+    """Deterministic CRC32 digest of a fixed slice of every leaf (the
+    first ``elems_per_leaf`` elements of its flattened value), chained in
+    ``jax.tree_util``'s flatten order: CRC32 over the bytes, then over the
+    numpy dtype name. Equal to the JAX ``param_digest`` for the same
+    values (bf16 included). A module is digested as its ``state_dict``
+    nested by its dots (the JAX parameter tree's order). Only the slice
+    crosses from the device to the host; other leaves are digested as
+    ``np.asarray`` sees them, as the JAX digest does, and skipped where
+    it cannot."""
+    if isinstance(tree, torch.nn.Module):
+        tree = nest_dotted(tree.state_dict())
+    crc = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            # bf16 as its raw 16 bits under the name "bfloat16", as the
+            # checkpoint stores it and ml_dtypes would give it
+            arr, name = tensor_storage(
+                leaf.detach().reshape(-1)[:elems_per_leaf].cpu())
+            data = arr.tobytes()
+        else:
+            try:
+                flat = np.ascontiguousarray(
+                    np.asarray(leaf).reshape(-1)[:elems_per_leaf])
+            except (TypeError, ValueError):
+                continue  # not array-like
+            data, name = flat.tobytes(), str(flat.dtype)
+        crc = zlib.crc32(data, crc)
+        crc = zlib.crc32(name.encode(), crc)
+    return crc & 0x7FFFFFFF
+
+
+def divergent_ranks(digests) -> List[int]:
+    """Majority vote over per-rank digests: ranks whose digest differs
+    from the STRICT-majority value are the odd ones out. No strict
+    majority (a 50/50 split, or everyone different) attributes nothing."""
+    values = [int(d) for d in digests]
+    if len(values) < 2:
+        return []
+    counts: dict = {}
+    for v in values:
+        counts[v] = counts.get(v, 0) + 1
+    modal, n = max(counts.items(), key=lambda kv: kv[1])
+    if n * 2 <= len(values):
+        return []
+    return [r for r, v in enumerate(values) if v != modal]
+
+
+def _count(name: str, help: str) -> None:
+    from horovod_tpu_torch.metrics.registry import default_registry
+    default_registry().counter(name, help=help).inc()
+
+
+class ReplicaCanary:
+    """Cross-replica divergence detector.
+
+    ``check(step, tree, axis=None)`` digests this rank's state, gathers one
+    int64 per rank over ``axis`` (a mesh
+    :class:`~horovod_tpu_torch.parallel.mesh.Axis`: the dp axis under a
+    mesh, whose ranks hold the same shards) or, with ``axis=None``, over
+    the world (no mesh: every rank a replica), and reports a
+    ``replica_divergence`` anomaly finding naming each odd rank out (its
+    world rank). :class:`GuardedStep` runs it every
+    ``HVD_TPU_CANARY_EVERY`` steps (0 = off, the default: the gather is
+    cheap, but it is a collective)."""
+
+    def __init__(self, every: int,
+                 elems_per_leaf: int = DIGEST_ELEMS_PER_LEAF) -> None:
+        self.every = int(every)
+        self.elems_per_leaf = elems_per_leaf
+
+    @staticmethod
+    def from_env() -> Optional["ReplicaCanary"]:
+        every = env_int("CANARY_EVERY", 0)
+        return ReplicaCanary(every) if every > 0 else None
+
+    def maybe_check(self, step: int, tree, axis=None) -> List[dict]:
+        if self.every <= 0 or step <= 0 or step % self.every != 0:
+            return []
+        return self.check(step, tree, axis)
+
+    def check(self, step: int, tree, axis=None) -> List[dict]:
+        """Returns the findings reported (usually []). A no-op unless the
+        process group is up with two or more replicas to compare."""
+        from horovod_tpu_torch.common.basics import (backend, device,
+                                                     is_initialized, rank)
+        if not is_initialized():
+            return []
+        import torch.distributed as dist
+        if axis is None:
+            group, ranks = None, list(range(dist.get_world_size()))
+        else:
+            group, ranks = axis.group, list(axis.ranks)
+        world = len(ranks)
+        if world < 2:
+            return []
+        digest = param_digest(tree, self.elems_per_leaf)
+        dev = device() if backend() == "nccl" else torch.device("cpu")
+        mine = torch.full((1,), digest, dtype=torch.int64, device=dev)
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(parts, mine, group=group)
+        digests = [int(p.item()) for p in parts]
+        _count("hvd_canary_checks_total",
+               "cross-replica canary digest comparisons run")
+        odd = divergent_ranks(digests)
+        findings = []
+        if not odd and len(set(digests)) > 1:
+            # replicas DISAGREE but no strict majority can convict a rank
+            # (two replicas, a 50/50 split): count it and say so
+            _count("hvd_canary_divergence_total",
+                   "canary checks that flagged a divergent replica")
+            from horovod_tpu_torch.diagnostics.flight_recorder import (
+                record_event)
+            record_event("canary_mismatch", step=int(step),
+                         digests=[hex(d) for d in digests])
+            log.error(
+                "canary: replica digests DISAGREE at step %d with no "
+                "attributable majority (%d replicas: %s) — data corruption "
+                "somewhere, but no rank can be convicted", step, world,
+                [hex(d) for d in digests])
+        majority = [d for i, d in enumerate(digests) if i not in odd]
+        for i in odd:
+            _count("hvd_canary_divergence_total",
+                   "canary checks that flagged a divergent replica")
+            log.error(
+                "canary: replica DIVERGENCE at step %d — rank %d digest "
+                "%#x disagrees with the majority (%d replicas, own rank "
+                "%d); silent data corruption upstream of the wire",
+                step, ranks[i], digests[i], world, rank())
+            from horovod_tpu_torch.metrics.anomaly import report_finding
+            f = report_finding("replica_divergence", rank=int(ranks[i]),
+                               step=int(step), digest=int(digests[i]),
+                               majority=int(majority[0]), world=int(world))
+            if f:
+                findings.append(f)
+        return findings
+
+
+# -- the step wrapper -----------------------------------------------------------
+
 class GuardedStep:
     """The step a guarded factory returns: ``fn(model, optimizer, batch)
     -> (model, optimizer, loss, ok)`` called as ``step(model, optimizer,
     batch) -> (model, optimizer, loss)``, each verdict observed at the
     next call or at :meth:`flush`. ``skipped`` counts the skipped steps,
-    ``consecutive`` the skips in a row."""
+    ``consecutive`` the skips in a row; every ``escalate_after``-th
+    consecutive skip reports a ``grad_nonfinite`` finding. ``canary`` (by
+    default from ``HVD_TPU_CANARY_EVERY``) checks the model over
+    ``canary_axis`` (the replicas' axis; ``None`` is the world) every N
+    steps."""
 
-    def __init__(self, fn, spec: GuardSpec) -> None:
+    def __init__(self, fn, spec: GuardSpec,
+                 canary: Optional[ReplicaCanary] = "env",
+                 canary_axis=None) -> None:
         self._fn = fn
         self.guard_spec = spec
+        self.canary = ReplicaCanary.from_env() if canary == "env" \
+            else canary
+        self.canary_axis = canary_axis
         self.skipped = 0
         self.consecutive = 0
         self._step = 0
@@ -277,6 +453,8 @@ class GuardedStep:
         self.flush()
         model, optimizer, loss, ok = self._fn(model, optimizer, batch)
         self._pending = (self._step, ok)
+        if self.canary is not None:
+            self.canary.maybe_check(self._step, model, self.canary_axis)
         self._step += 1
         return model, optimizer, loss
 
@@ -291,17 +469,18 @@ class GuardedStep:
             return
         self.skipped += 1
         self.consecutive += 1
-        try:
-            from horovod_tpu_torch.metrics.registry import default_registry
-            default_registry().counter(
-                "hvd_guard_skipped_steps_total",
-                help="train steps skipped by the numeric guardrail "
-                     "(non-finite or over-norm gradients; parameters "
-                     "and optimizer state kept)").inc()
-        except Exception:
-            pass
+        _count("hvd_guard_skipped_steps_total",
+               "train steps skipped by the numeric guardrail (non-finite "
+               "or over-norm gradients; parameters and optimizer state "
+               "kept)")
         from horovod_tpu_torch.diagnostics.flight_recorder import record_event
         record_event("guard_skip", step=int(step),
                      consecutive=self.consecutive)
         log.warning("guard: skipped step %d (non-finite or over-norm "
                     "gradients; %d consecutive)", step, self.consecutive)
+        if self.consecutive % self.guard_spec.escalate_after == 0:
+            # every Nth consecutive skip re-reports: a run that stays
+            # poisoned keeps saying so instead of going quiet
+            from horovod_tpu_torch.metrics.anomaly import report_finding
+            report_finding("grad_nonfinite", step=int(step),
+                           consecutive=self.consecutive)

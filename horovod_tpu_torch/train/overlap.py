@@ -382,4 +382,4 @@ def make_overlap_train_step(loss_fn: Callable, mesh, axis_name: str = "dp",
         def step(model, optimizer, batch):
             return _loss_and_step(model, optimizer, batch)[:3]
         return step
-    return GuardedStep(_loss_and_step, gspec)
+    return GuardedStep(_loss_and_step, gspec, canary_axis=axis)

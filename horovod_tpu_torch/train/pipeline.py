@@ -355,7 +355,7 @@ def make_pipeline_train_step(layer_fn: Callable, loss_fn: Callable,
     body.__name__ = f"pipeline_body[{plan.key}]"
     bound = compile_step_with_plan(body, mesh, plan)
     if gspec.enabled:
-        fn = GuardedStep(bound, gspec)
+        fn = GuardedStep(bound, gspec, canary_axis=mesh.axis("dp"))
     else:
         def fn(params, optimizer, batch):
             return bound(params, optimizer, batch)[:3]

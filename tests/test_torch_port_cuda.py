@@ -565,6 +565,73 @@ def test_pipeline_1f1b_over_nccl_matches_one_process(tmp_path):
                                    atol=1e-6)
 
 
+
+# -- checkpoints and the data path on the card ------------------------------
+
+def test_checkpoint_cut_is_the_state_at_save_on_the_card(dev, tmp_path):
+    """Tensors updated in place on the current stream right after
+    ``save`` returns (the copies to the host still queued): the commit
+    holds the values at the call, bf16 and fp32, to the bit."""
+    from horovod_tpu_torch.checkpoint import ShardedCheckpointer
+    big = _rand(dev, 4096, 1024, seed=5)
+    state = {"w": big, "b": _rand(dev, 3000, dtype=BF, seed=6),
+             "step": torch.ones((), device=dev)}
+    want = {k: v.cpu() for k, v in state.items()}
+    ck = ShardedCheckpointer(str(tmp_path), rank=0, world_size=1)
+    torch.cuda._sleep(50_000_000)   # the copies queue behind a busy stream
+    ck.save(1, state)
+    for t in state.values():
+        t.mul_(-3.0).add_(1.0)
+    ck.wait()
+    out = ck.restore(1, like=state)
+    for k, v in out.items():
+        assert v.device == state[k].device and v.dtype == state[k].dtype
+        assert torch.equal(v.cpu().view(torch.int16) if v.dtype == BF
+                           else v.cpu(),
+                           want[k].view(torch.int16) if v.dtype == BF
+                           else want[k]), k
+
+
+def test_checkpoint_bf16_leaf_roundtrips_to_the_bit(dev, tmp_path):
+    from horovod_tpu_torch.checkpoint import ShardedCheckpointer
+    from horovod_tpu_torch.checkpoint import format as fmt
+    x = _rand(dev, 513, 7, dtype=BF, seed=7)
+    ck = ShardedCheckpointer(str(tmp_path), rank=0, world_size=1)
+    ck.save(2, {"x": x}, wait=True)
+    (leaf,) = fmt.read_manifest(str(tmp_path), 2)["leaves"]
+    assert leaf["dtype"] == "bfloat16"
+    got = ck.restore(2, like={"x": x})["x"]
+    assert got.is_cuda and got.dtype == BF
+    assert torch.equal(got.view(torch.int16), x.view(torch.int16))
+    host = ck.restore(2)["x"]
+    assert not host.is_cuda and torch.equal(host.view(torch.int16),
+                                            x.cpu().view(torch.int16))
+
+
+def test_device_prefetch_side_stream_equal_batches_no_reuse(dev):
+    """Batches copied on the side stream arrive equal, in order, while
+    the consumer's stream is busy; a consumed batch's memory is not handed
+    to a later batch while a kernel reading it may still run."""
+    import numpy as np
+
+    from horovod_tpu_torch.data import device_prefetch
+    rng = np.random.RandomState(0)
+    batches = [{"x": rng.randn(1024, 1024).astype(np.float32),
+                "i": np.full((8,), i, np.int64)} for i in range(8)]
+    pf = device_prefetch(iter(batches), buffer_size=2, device=dev)
+    assert pf._stream is not None and \
+        pf._stream != torch.cuda.current_stream(dev)
+    sums = []
+    for i, b in enumerate(pf):
+        torch.cuda._sleep(20_000_000)         # the consumer is busy
+        sums.append(b["x"].double().sum())
+        assert b["x"].device == dev and int(b["i"][0]) == i
+        del b
+    for s, b in zip(sums, batches):
+        assert float(s) == pytest.approx(float(b["x"].astype(np.float64)
+                                               .sum()), rel=1e-12)
+
+
 if __name__ == "__main__":
     import sys
     from torch_port_worker import worker_main

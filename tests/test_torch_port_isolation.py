@@ -17,7 +17,8 @@ from horovod_tpu_torch.models import Transformer
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "horovod_tpu_torch")
 _FORBIDDEN = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|jaxlib|optax|flax|horovod_tpu)(?:[.\s]|$)",
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|optax|flax|ml_dtypes|horovod_tpu)"
+    r"(?:[.\s]|$)",
     re.M)
 
 
@@ -35,7 +36,7 @@ def test_importing_every_module_loads_no_jax():
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'flax', 'horovod_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'flax', 'ml_dtypes', 'horovod_tpu'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad or len(mods) < 8 else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -56,7 +57,8 @@ def test_sources_import_nothing_of_jax():
 
 def test_forbidden_pattern_catches_what_it_should():
     for bad in ("import jax", "from jax import numpy", "import jax.numpy",
-                "  from horovod_tpu.ops import x", "import horovod_tpu"):
+                "  from horovod_tpu.ops import x", "import horovod_tpu",
+                "import ml_dtypes", "    import ml_dtypes  # bf16"):
         assert _FORBIDDEN.search(bad), bad
     for ok in ("import horovod_tpu_torch", "from horovod_tpu_torch import x",
                "# the jax package"):
@@ -266,3 +268,26 @@ def test_dryrun_without_device_raises_without_cuda(no_cuda):
     from horovod_tpu_torch.dryrun import dryrun_multichip
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dryrun_multichip(2)
+
+
+def test_checkpoint_modules_import_and_export():
+    """The checkpoint slice's modules stand alone: each has its docstring,
+    the package exports the JAX package's names of them, and the
+    prefetcher refuses to drift onto the CPU without being asked."""
+    from horovod_tpu_torch import checkpoint, data
+    from horovod_tpu_torch.checkpoint import format, metrics, state, store, \
+        writer
+    from horovod_tpu_torch.train import callbacks, guard
+    from horovod_tpu_torch.train import checkpoint as train_checkpoint
+    for m in (checkpoint, format, metrics, state, store, writer, data,
+              train_checkpoint):
+        assert m.__doc__
+    assert horovod_tpu_torch.ShardedCheckpointer is store.ShardedCheckpointer
+    assert horovod_tpu_torch.Checkpointer is store.ShardedCheckpointer
+    assert horovod_tpu_torch.CheckpointError is format.CheckpointError
+    assert horovod_tpu_torch.ReplicaCanary is guard.ReplicaCanary
+    assert horovod_tpu_torch.param_digest is guard.param_digest
+    assert horovod_tpu_torch.callbacks is callbacks
+    for name in ("CheckpointCallback", "BroadcastGlobalVariablesCallback",
+                 "MetricAverageCallback", "LearningRateWarmupCallback"):
+        assert getattr(callbacks, name).__doc__

@@ -356,17 +356,27 @@ def test_mesh_int8_bytes_are_device_allreduces(metrics_world, mesh2):
     from horovod_tpu.compression.quantizers import BlockInt8Quantizer
     from horovod_tpu.ops.mesh_collectives import device_allreduce
     from horovod_tpu.ops.reduce_op import ReduceOp
-    pre, wire, _ = _codec_instruments("int8")
-    for i, x in enumerate(metric_inputs()):
-        before = (pre.value, wire.value)
-        device_allreduce(jnp.asarray(x), mesh2, "dp", ReduceOp.AVERAGE,
-                         compression=BlockInt8Quantizer(256))
-        want = (pre.value - before[0], wire.value - before[1])
-        for r in metrics_world:
-            got = (float(r[f"mesh{i}_pre_bytes_total"]),
-                   float(r[f"mesh{i}_wire_bytes_total"]))
-            assert got == want, (i, got, want)
-            assert float(r[f"mesh{i}_ratio"]) == want[0] / want[1]
+    instruments = _codec_instruments("int8")
+    pre, wire, _ = instruments
+    saved = [inst.value for inst in instruments]
+    try:
+        for i, x in enumerate(metric_inputs()):
+            before = (pre.value, wire.value)
+            device_allreduce(jnp.asarray(x), mesh2, "dp", ReduceOp.AVERAGE,
+                             compression=BlockInt8Quantizer(256))
+            want = (pre.value - before[0], wire.value - before[1])
+            for r in metrics_world:
+                got = (float(r[f"mesh{i}_pre_bytes_total"]),
+                       float(r[f"mesh{i}_wire_bytes_total"]))
+                assert got == want, (i, got, want)
+                assert float(r[f"mesh{i}_ratio"]) == want[0] / want[1]
+    finally:
+        # leave the JAX package's cumulative int8 counters as they were:
+        # these small tensors compress worse than block-sized ones, and
+        # tests/test_compression.py reads the process's cumulative ratio
+        for inst, value in zip(instruments, saved):
+            with inst._lock:
+                inst._value = value
 
 
 def test_eager_int8_bytes_are_quantized_grouped_allreduces(metrics_world):
