@@ -190,6 +190,38 @@ The checkpoint slice adds two phases:
   replicas, and after rank 1 moves one element both ranks record the tie
   (``hvd_canary_divergence_total`` and a ``canary_mismatch`` event).
 
+The model-zoo slice adds three phases (no kernel of their own: cuDNN and
+cuBLAS; none of the eight kernels is on their path):
+
+* ``[zoo]``: in an NCCL world of one (its dp axis still syncs the
+  gradients), each ZOO_MODELS row at full width, bf16 compute, fp32
+  parameters, ``channels_last``, bench.py's per-card batch and optimizer:
+  ResNet-50 with both stems, VGG-16, Inception V3 (299x299) and BERT-Large
+  (S 128), ZOO_STEPS steps of its ``make_*_train_step`` on one seeded batch
+  (real step indices for dropout). Checks: finite losses that fall from
+  step 1 to the last (at dropout 0 too when dropout's noise hides the
+  fall, printed); at ZOO_CHECK_BATCH rows, the initial weights' forward
+  (batch statistics, dropout off) in bf16 on the card within ZOO_LOSS_TOL
+  (loss) and ZOO_LOGIT_TOL (logits, of the largest) of fp32 on the CPU,
+  and in fp32 on the card within ZOO_LOGIT_TOL (ZOO_LOGITS_PRINTED's bf16
+  logits are printed only); the FLOPs of a step counted
+  (``metrics.mfu.flops_per_step``) within ZOO_FLOPS_TOL of bench.py's
+  ``3·2·FWD_MACS_PER_IMG·B`` for the CNNs. It prints images/s (sequences/s)
+  from the median of steps 2-5, MFU against the card's peak row,
+  ``peak_bytes_in_use``, and the card's name and power limit.
+* ``[zoo_dp_gloo_2rank]``: ResNet-50 in fp32 at 224x224 as two gloo ranks
+  (``--gloo-rank DIR zoo_dp``) of ZOO_DP_ROWS images each, against one
+  process on the same 32: step 1's loss, the synced gradient of every leaf
+  and the BN running statistics (the global batch's), the ranks
+  bit-identical after each of ZOO_DP_STEPS steps; it prints how far a
+  local BN (each rank's own block) would have put the gradient and the
+  statistics.
+* ``[bert_tp_gloo_2rank]``: BERT at bert_large width, depth cut to
+  BERT_TP_LAYERS (printed), S BERT_TP_SEQ, fp32, as two gloo ranks over
+  ``{tp: 2}`` (``--gloo-rank DIR bert_tp``) against one process: the loss,
+  each leaf's gradient reassembled from both shards, and BERT_TP_STEPS
+  AdamW steps' losses.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -310,6 +342,40 @@ CKPT_CORPUS = 12          # seeded batches: run A takes 9, prefetches 2 more
 CKPT_PREFETCH = 2         # device_prefetch's buffer
 CKPT_PAIRS = 6            # steps fed by device_prefetch / from host, in turns
 CKPT_DP_STEPS = 3         # [checkpoint_2rank]
+# [zoo]: name, constructor keywords, per-card batch, input, optimizer and
+# its learning rate (bench.py's per-chip defaults and optimizers,
+# bench.py:616-617, :623, :859-863, :880, :889, :906)
+ZOO_MODELS = (("resnet50", {"stem": "conv"}, 256, 224, "sgd", 0.1),
+              ("resnet50", {"stem": "s2d"}, 256, 224, "sgd", 0.1),
+              ("vgg16", {"image_size": 224}, 128, 224, "sgd", 0.01),
+              ("inception3", {}, 128, 299, "sgd", 0.1),
+              ("bert_large", {}, 64, 128, "adamw", 1e-4))
+ZOO_STEPS = 5
+ZOO_CHECK_BATCH = 4       # the bf16-on-card vs fp32-on-CPU forward
+ZOO_LOSS_TOL = 2e-2       # PERF.md §2's loss agreement
+ZOO_LOGIT_TOL = 5e-2      # of the largest fp32 logit
+# models whose bf16 logits are printed, not held to ZOO_LOGIT_TOL: a
+# randomly initialised conv-BN-ReLU stack about 45 deep without residual
+# connections multiplies each rounding difference (on the CPU, bf16 vs fp32
+# at batch 4: 0.195 of the largest logit, the loss 1.7e-3 apart); their
+# card forward is held in fp32 against the CPU's instead
+ZOO_LOGITS_PRINTED = ("inception3",)
+ZOO_FLOPS_TOL = 5e-2      # the counted FLOPs against bench.py's analytic
+# bench.py:57-60: forward GMACs an image (224 input; inception3 at 299)
+FWD_MACS_PER_IMG = {"resnet50": 4.09e9, "resnet101": 7.6e9,
+                    "vgg16": 15.47e9, "inception3": 5.7e9}
+ZOO_DP_ROWS, ZOO_DP_SIZE = 16, 224   # [zoo_dp_gloo_2rank]: images a rank
+ZOO_DP_STEPS = 3
+ZOO_DP_LOSS_TOL = 1e-4
+ZOO_DP_GRAD_TOL = 1e-3    # rel L2, per leaf
+ZOO_DP_STATS_TOL = 1e-4   # BN running mean and variance, max abs
+BERT_TP_LAYERS = 2        # [bert_tp_gloo_2rank]: bert_large width, cut depth
+BERT_TP_ROWS, BERT_TP_SEQ = 8, 128
+BERT_TP_STEPS = 3
+BERT_TP_LOSS_TOL = 1e-4
+BERT_TP_GRAD_TOL = 1e-3
+BERT_TP_GRAD_FLOOR = 1e-3  # of the largest leaf's gradient norm
+BERT_TP_STEP_TOL = 1e-3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -699,15 +765,16 @@ def drive_int8_path(torch, label, factory, pair, cfg, init_sd, batch,
     return losses, got, 1e3 * med
 
 
-def rel_l2(a, b) -> float:
-    """||a − b|| / ||b|| in fp64."""
+def rel_l2(a, b, floor: float = 1e-30) -> float:
+    """||a − b|| / max(||b||, floor) in fp64."""
     a, b = a.double(), b.double()
-    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    return float((a - b).norm() / b.norm().clamp_min(floor))
 
 
-def grad_errors(grads, ref) -> dict:
-    """Per parameter: relative L2 distance and max abs error."""
-    return {k: (rel_l2(grads[k], ref[k]), max_err(grads[k], ref[k]))
+def grad_errors(grads, ref, floor: float = 1e-30) -> dict:
+    """Per parameter: relative L2 distance (to the larger of the leaf's
+    norm and ``floor``) and max abs error."""
+    return {k: (rel_l2(grads[k], ref[k], floor), max_err(grads[k], ref[k]))
             for k in ref}
 
 
@@ -1162,10 +1229,14 @@ def phase_telemetry_dp_int8(torch, hvd, mesh, cfg, init_sd, batch, counters,
     return launches
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+def _reserve_port() -> socket.socket:
+    """A free port, held open (bound with SO_REUSEADDR, not listening)
+    while the ranks run: rank 0's TCP store can bind it, and no other
+    socket of the machine can take it between the pick and that bind."""
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("127.0.0.1", 0))
+    return sock
 
 
 def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str,
@@ -1174,7 +1245,8 @@ def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str,
     world (or ``backend``), all on ``cuda:0`` as one-card hosts, with a
     timeout; kill their process groups on the way out, and fail ``label``
     if a rank did. The ranks write their results to ``out_dir``."""
-    port = _free_port()
+    reserved = _reserve_port()
+    port = reserved.getsockname()[1]
     procs, logs = [], []
     for r in range(n):
         env = dict(os.environ, HVD_TPU_RANK=str(r), HVD_TPU_SIZE=str(n),
@@ -1198,6 +1270,7 @@ def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str,
     except subprocess.TimeoutExpired:
         pass
     finally:
+        reserved.close()
         for p in procs:
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
@@ -2745,6 +2818,515 @@ def phase_checkpoint_2rank(torch, card: str) -> dict:
               f"{want_l}")
     return {"checkpoint_2rank": [x["launches"] for x in res]}
 
+# -- the model zoo ----------------------------------------------------------------------
+
+def zoo_model(torch, name, kw, dev, mesh, dtype):
+    """A zoo model of ``name`` (``models.MODEL_ZOO``) in ``dtype`` compute
+    on ``dev``; BERT from its config."""
+    from horovod_tpu_torch.models import bert, get_model
+    if name.startswith("bert"):
+        return bert.Bert(dataclasses.replace(get_model(name), dtype=dtype),
+                         dev, mesh)
+    return get_model(name, dtype=dtype, device=dev, mesh=mesh, **kw)
+
+
+def zoo_batch(torch, name, rows, size, dev, seed):
+    """Seeded inputs on ``dev``: images in [0, 1) and labels, or a BERT
+    batch (rows padded to a length in [size/2, size], 15% of the kept
+    tokens masked for MLM)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if not name.startswith("bert"):
+        return (torch.rand(rows, 3, size, size, generator=g, device=dev),
+                torch.randint(0, 1000, (rows,), generator=g, device=dev))
+    vocab = 30522
+    pos = torch.arange(size, device=dev)[None]
+    lengths = torch.randint(size // 2, size + 1, (rows, 1), generator=g,
+                            device=dev)
+    mask = pos < lengths
+    return {"input_ids": torch.randint(0, vocab, (rows, size), generator=g,
+                                       device=dev),
+            "token_type_ids": (pos >= size // 2).long().expand(rows, size)
+            .contiguous(),
+            "attention_mask": mask,
+            "mlm_labels": torch.randint(0, vocab, (rows, size), generator=g,
+                                        device=dev),
+            "mlm_mask": (torch.rand(rows, size, generator=g, device=dev)
+                         < 0.15).float() * mask,
+            "nsp_labels": torch.randint(0, 2, (rows,), generator=g,
+                                        device=dev)}
+
+
+def zoo_loss(torch, name, model, batch, mesh=None):
+    """``(loss, logits)`` of one forward (BERT: the MLM logits)."""
+    from horovod_tpu_torch.models import bert
+    if name.startswith("bert"):
+        mlm, nsp = model(batch["input_ids"], batch["token_type_ids"],
+                         batch["attention_mask"])
+        return bert.pretrain_loss(mlm, nsp, batch["mlm_labels"],
+                                  batch["mlm_mask"], batch["nsp_labels"],
+                                  mesh, model.cfg.vocab_size), mlm
+    logits = model(batch[0])
+    return torch.nn.functional.cross_entropy(logits.float(),
+                                             batch[1].long()), logits
+
+
+def bert_loss_parts(torch, model, batch, mesh=None):
+    """BERT's ``(masked-LM, next-sentence)`` terms of ``pretrain_loss``."""
+    from horovod_tpu_torch.models import bert
+    mlm, nsp = model(batch["input_ids"], batch["token_type_ids"],
+                     batch["attention_mask"])
+    total = bert.pretrain_loss(mlm, nsp, batch["mlm_labels"],
+                               batch["mlm_mask"], batch["nsp_labels"], mesh,
+                               model.cfg.vocab_size)
+    nsp_term = float(torch.nn.functional.cross_entropy(
+        nsp.float(), batch["nsp_labels"].long()))
+    return float(total) - nsp_term, nsp_term
+
+
+def zoo_step(name, model, mesh):
+    """The model's ``make_*_train_step`` as ``step(model, opt, batch, i)``
+    (``i`` the step index VGG's and Inception's dropout folds in)."""
+    from horovod_tpu_torch.models import bert, inception, resnet, vgg
+    if name.startswith("bert"):
+        s = bert.make_bert_train_step(model, mesh)
+        return lambda m, o, b, i: s(m, o, b)
+    if name in ("vgg16", "inception3"):
+        make = vgg.make_vgg_train_step if name == "vgg16" else \
+            inception.make_inception_train_step
+        s = make(model, mesh)
+        return lambda m, o, b, i: s(m, o, *b, i)
+    s = resnet.make_resnet_train_step(model, mesh)
+    return lambda m, o, b, i: s(m, o, *b)
+
+
+def zoo_optimizer(torch, name, model, kind, lr):
+    from horovod_tpu_torch.models import bert
+    if kind == "adamw":
+        return bert.adamw(model.parameters(), lr)
+    return torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
+
+
+def zoo_forward_check(torch, name, kw, size, dev, init) -> dict:
+    """The forward (train mode: batch statistics; dropout off) of the
+    initial weights at ZOO_CHECK_BATCH rows: bf16 and fp32 on the card
+    against fp32 on the CPU."""
+    batch = zoo_batch(torch, name, ZOO_CHECK_BATCH, size, dev, seed=2)
+    out = {}
+    for tag, d, dtype in (("bf16", dev, torch.bfloat16),
+                          ("fp32", dev, torch.float32),
+                          ("cpu", torch.device("cpu"), torch.float32)):
+        m = zoo_model(torch, name, kw, d, None, dtype)
+        m.load_state_dict(init)
+        m.train()
+        if hasattr(m, "dropout"):
+            m.dropout = 0.0
+        b = batch if d == dev else (
+            {k: v.cpu() for k, v in batch.items()} if isinstance(batch, dict)
+            else tuple(t.cpu() for t in batch))
+        with torch.no_grad():
+            loss, logits = zoo_loss(torch, name, m, b)
+        out[tag] = (float(loss), logits.float().cpu())
+        del m
+    ref_loss, ref_logits = out["cpu"]
+    scale = float(ref_logits.abs().max())
+    res = {"cpu_fp32_loss": ref_loss}
+    for tag in ("bf16", "fp32"):
+        loss, logits = out[tag]
+        res[f"{tag}_loss"] = loss
+        res[f"{tag}_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+        res[f"{tag}_logit_err"] = float((logits - ref_logits).abs().max()) \
+            / scale
+    return res
+
+
+def device_breakdown(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms, the ms the
+    card was busy (kernels, summed), the idle share, the launches, and the
+    kernels' ms by ``profile_step.kernel_group``."""
+    from horovod_tpu_torch.profile_step import kernel_group
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    groups: dict = {}
+    for e in kernels:
+        g = kernel_group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(groups.values())
+    return {"profiled_step_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "launches": len(kernels),
+            "device_ms_by_group": ";".join(
+                f"{g}:{t:.3f}" for g, t in sorted(groups.items(),
+                                                   key=lambda kv: -kv[1]))}
+
+
+def phase_zoo_one(torch, name, kw, rows, size, opt_kind, lr, dev, mesh,
+                  card) -> None:
+    """One [zoo] line: the forward check, ZOO_STEPS steps of the model's
+    train step on one seeded batch at full width (bf16 compute, fp32
+    parameters), the FLOPs of a step counted against bench.py's, the
+    throughput, MFU and peak memory."""
+    from horovod_tpu_torch.metrics import mfu
+    from horovod_tpu_torch.models._flax import init_state
+    label = name + (f"_{kw['stem']}" if "stem" in kw else "")
+    model = zoo_model(torch, name, kw, dev, mesh, torch.bfloat16)
+    init_state(model, 0)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    fwd = zoo_forward_check(torch, name, kw, size, dev, init)
+    batch = zoo_batch(torch, name, rows, size, dev, seed=1)
+    step = zoo_step(name, model, mesh)
+
+    def run():
+        opt = zoo_optimizer(torch, name, model, opt_kind, lr)
+        losses, secs = [], []
+        for i in range(ZOO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, loss = step(model, opt, batch, i)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        return losses, secs, opt
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, opt = run()
+    peak = torch.cuda.max_memory_allocated()
+    where = device_breakdown(torch,
+                             lambda: step(model, opt, batch, ZOO_STEPS))
+    checked = f"dropout {model.dropout}" if hasattr(model, "dropout") else \
+        "as trained"
+    fell = losses[-1] < losses[0]
+    if not fell and name.startswith("bert"):
+        # AdamW's first steps (each a sign step of every parameter) without
+        # warmup overshoot the NSP head: every layer moves the [CLS] logits
+        # together. The JAX step does the same from the same weights
+        # (tests/torch_port_bert_large_trajectory.py). The fall is
+        # then checked on the masked-LM term: the same steps again, the two
+        # terms taken apart before each (printed)
+        model.load_state_dict(init)
+        opt = zoo_optimizer(torch, name, model, opt_kind, lr)
+        parts = []
+        for i in range(ZOO_STEPS):
+            with torch.no_grad():
+                parts.append(bert_loss_parts(torch, model, batch, mesh))
+            step(model, opt, batch, i)
+        checked = "the MLM term (" + ", ".join(
+            f"mlm {m:.5f} nsp {n:.5f}" for m, n in parts) + ")"
+        fell = parts[-1][0] < parts[0][0]
+    if not fell and getattr(model, "dropout", 0.0):
+        # dropout's noise may hide the fall: the same steps at dropout 0
+        noisy = losses
+        model.load_state_dict(init)
+        model.dropout = 0.0
+        losses = run()[0]
+        checked = "dropout 0 (at dropout 0.5: " + ",".join(
+            f"{x:.5f}" for x in noisy) + ")"
+        fell = losses[-1] < losses[0]
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        zoo_loss(torch, name, model, batch, mesh)[0].backward()
+
+    flops = mfu.flops_per_step(fwd_bwd)
+    analytic = 6 * FWD_MACS_PER_IMG[name] * rows \
+        if name in FWD_MACS_PER_IMG else None
+    med = sorted(secs[1:])[len(secs[1:]) // 2]
+    unit = "sequences_per_s" if name.startswith("bert") else "images_per_s"
+    line = {"model": label, "batch": rows,
+            "input": f"S{size}" if name.startswith("bert")
+            else f"{size}x{size}",
+            "optimizer": f"{opt_kind}:{lr}",
+            "losses": ",".join(f"{x:.5f}" for x in losses),
+            "loss_fall_checked": checked,
+            "step_ms": ",".join(f"{1e3 * x:.3f}" for x in secs),
+            "median_step_ms_2to5": 1e3 * med, unit: rows / med,
+            "flops_per_step": flops, "analytic_flops": analytic,
+            "flops_rel": None if analytic is None
+            else abs(flops - analytic) / analytic,
+            "mfu": mfu.mfu(flops, med), "peak_bytes_in_use": peak,
+            **where, **fwd, "tol_loss_rel": ZOO_LOSS_TOL,
+            "tol_logit": ZOO_LOGIT_TOL,
+            "card": card}
+    say("zoo", **line)
+    check(all(map(math.isfinite, losses)), f"zoo {label}: non-finite loss "
+                                           f"{losses}")
+    check(fell, f"zoo {label}: the loss did not fall over {ZOO_STEPS} "
+                f"steps ({checked}): {losses}")
+    check(fwd["bf16_loss_rel"] <= ZOO_LOSS_TOL,
+          f"zoo {label}: bf16 loss {fwd['bf16_loss']} is "
+          f"{fwd['bf16_loss_rel']} off the CPU's fp32 {fwd['cpu_fp32_loss']}")
+    check(fwd["fp32_logit_err"] <= ZOO_LOGIT_TOL,
+          f"zoo {label}: fp32 logits on the card {fwd['fp32_logit_err']} "
+          f"off the CPU's")
+    if name not in ZOO_LOGITS_PRINTED:
+        check(fwd["bf16_logit_err"] <= ZOO_LOGIT_TOL,
+              f"zoo {label}: bf16 logits {fwd['bf16_logit_err']} of the "
+              f"largest fp32 logit off the CPU's")
+    if analytic is not None:
+        check(line["flops_rel"] <= ZOO_FLOPS_TOL,
+              f"zoo {label}: {flops} FLOPs a step, bench.py's analytic "
+              f"{analytic}")
+    del model, step, batch, opt
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(torch, dev, card) -> None:
+    """[zoo]: every ZOO_MODELS row in an NCCL world of one (its mesh's
+    collectives still run: the gradient sync over dp)."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    mesh = hvd.build_mesh(dp=1)
+    say("zoo", world=hvd.size(), backend=dist.get_backend(),
+        steps=ZOO_STEPS, check_batch=ZOO_CHECK_BATCH)
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for name, kw, rows, size, opt_kind, lr in ZOO_MODELS:
+            phase_zoo_one(torch, name, kw, rows, size, opt_kind, lr, dev,
+                          mesh, card)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    hvd.shutdown()
+
+
+def zoo_dp_rank_main(out_dir: str) -> int:
+    """One rank of [zoo_dp_gloo_2rank]: ResNet-50 in fp32 over ``{dp: 2}``
+    (gloo, on ``cuda:0``) from the weights and images in ``inputs.pt``,
+    its block of ZOO_DP_ROWS images, ZOO_DP_STEPS SGD-momentum steps; step
+    1's loss, synced gradients and BN statistics, and a digest of the
+    state after each step, to ``zoo_dp<r>.pt``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init()
+    dev = hvd.device()
+    mesh = hvd.build_mesh(dp=2)
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"))
+    model = resnet.ResNet50(dtype=torch.float32, device=dev, mesh=mesh)
+    model.load_state_dict(inp["state"])
+    x, y = hvd.shard_batch(inp["images"].to(dev), inp["labels"].to(dev),
+                           mesh)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    step = resnet.make_resnet_train_step(model, mesh)
+    res = {"losses": [], "digests": [], "step_ms": []}
+    for i in range(ZOO_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = step(model, opt, x, y)
+        res["losses"].append(float(loss))
+        res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            res["grads"] = {k: p.grad.detach().cpu().clone()
+                            for k, p in model.named_parameters()}
+            res["stats"] = {k: v.detach().cpu().clone()
+                            for k, v in model.state_dict().items()
+                            if k.endswith((".mean", ".var"))}
+        res["digests"].append(params_digest(model))
+    torch.save(res, os.path.join(out_dir, f"zoo_dp{hvd.rank()}.pt"))
+    hvd.shutdown()
+    return 0
+
+
+def phase_zoo_dp(torch, dev, card) -> None:
+    """[zoo_dp_gloo_2rank]: two gloo ranks of ResNet-50 (fp32, 224x224,
+    ZOO_DP_ROWS images each) against one process on the same 32 images:
+    step 1's loss, synced gradients and BN running statistics (the global
+    batch's), bit-identical ranks after every step; and the distance a
+    local BN (each rank normalizing its own block) would have given."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.models._flax import init_state
+    model = resnet.ResNet50(dtype=torch.float32, device=dev)
+    init_state(model, 0)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    n = 2 * ZOO_DP_ROWS
+    images = torch.rand(n, 3, ZOO_DP_SIZE, ZOO_DP_SIZE, generator=g,
+                        device=dev)
+    labels = torch.randint(0, 1000, (n,), generator=g, device=dev)
+    with tempfile.TemporaryDirectory(prefix="zoo_dp_") as out_dir:
+        torch.save({"state": init, "images": images.cpu(),
+                    "labels": labels.cpu()},
+                   os.path.join(out_dir, "inputs.pt"))
+        t0 = time.perf_counter()
+        _run_gloo_ranks(out_dir, 2, "zoo_dp", "zoo_dp_gloo_2rank")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"zoo_dp{r}.pt"))
+                 for r in range(2)]
+
+    def one_step(rows):
+        model.load_state_dict(init)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        _, _, loss = resnet.make_resnet_train_step(model)(
+            model, opt, images[rows], labels[rows])
+        return (float(loss),
+                {k: p.grad.detach().cpu().clone()
+                 for k, p in model.named_parameters()},
+                {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()
+                 if k.endswith((".mean", ".var"))})
+
+    loss, grads, stats = one_step(slice(0, n))
+    halves = [one_step(slice(h * ZOO_DP_ROWS, (h + 1) * ZOO_DP_ROWS))
+              for h in range(2)]
+    local_grads = {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in grads}
+    local_err = grad_errors(local_grads, grads)
+    r0 = ranks[0]
+    errs = grad_errors(r0["grads"], grads)
+    worst = max(errs, key=lambda k: errs[k][0])
+    local_worst = max(local_err, key=lambda k: local_err[k][0])
+    stats_err = max(max_err(r0["stats"][k], stats[k]) for k in stats)
+    local_stats_err = max(max_err(halves[0][2][k], stats[k]) for k in stats)
+    loss_rel = abs(r0["losses"][0] - loss) / abs(loss)
+    same = r0["digests"] == ranks[1]["digests"]
+    say("zoo_dp_gloo_2rank", model="resnet50", images_a_rank=ZOO_DP_ROWS,
+        input=f"{ZOO_DP_SIZE}x{ZOO_DP_SIZE}",
+        compute="fp32", seconds=wall,
+        losses=",".join(f"{x:.6f}" for x in r0["losses"]),
+        step_ms=",".join(f"{x:.1f}" for x in r0["step_ms"]),
+        one_process_loss=loss, loss_rel=loss_rel, tol_loss=ZOO_DP_LOSS_TOL,
+        worst_grad=worst, grad_rel_l2=errs[worst][0],
+        tol_grad_rel_l2=ZOO_DP_GRAD_TOL, stats_max_abs=stats_err,
+        tol_stats=ZOO_DP_STATS_TOL, bit_identical_every_step=same,
+        local_bn_worst_grad=local_worst,
+        local_bn_grad_rel_l2=local_err[local_worst][0],
+        local_bn_stats_max_abs=local_stats_err, card=card)
+    check(loss_rel <= ZOO_DP_LOSS_TOL, f"zoo_dp: step 1 loss "
+          f"{r0['losses'][0]} is {loss_rel} off one process's {loss}")
+    check(errs[worst][0] <= ZOO_DP_GRAD_TOL,
+          f"zoo_dp: synced gradient of {worst} is {errs[worst][0]} off")
+    check(stats_err <= ZOO_DP_STATS_TOL,
+          f"zoo_dp: BN running statistics {stats_err} off the global ones")
+    check(same, "zoo_dp: the two ranks' states differ after a step")
+    check(all(ranks[1]["losses"][i] == r0["losses"][i]
+              for i in range(ZOO_DP_STEPS)), "zoo_dp: the ranks' losses "
+                                              "differ")
+    del model
+    torch.cuda.empty_cache()
+
+
+def bert_tp_cfg(torch):
+    from horovod_tpu_torch.models import bert
+    return dataclasses.replace(bert.bert_large(torch.float32),
+                               num_layers=BERT_TP_LAYERS)
+
+
+def bert_tp_rank_main(out_dir: str) -> int:
+    """One rank of [bert_tp_gloo_2rank]: BERT at bert_large width over
+    ``{tp: 2}`` (gloo, on ``cuda:0``) from the full state in
+    ``inputs.pt``, sliced for this rank: the loss and this rank's gradient
+    shards of one forward and backward, then BERT_TP_STEPS AdamW steps'
+    losses, to ``bert_tp<r>.pt``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    dev = hvd.device()
+    mesh = hvd.build_mesh(dp=1, tp=2)
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"))
+    cfg = bert_tp_cfg(torch)
+    model = bert.Bert(cfg, dev, mesh)
+    model.load_state_dict(bert.shard_state_dict(inp["state"], cfg, mesh))
+    batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+    loss, _ = zoo_loss(torch, "bert_large", model, batch, mesh)
+    loss.backward()
+    res = {"loss": float(loss.detach()),
+           "grads": {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()}}
+    opt = bert.adamw(model.parameters(), 1e-4)
+    step = bert.make_bert_train_step(model, mesh)
+    res["losses"] = [float(step(model, opt, batch)[2])
+                     for _ in range(BERT_TP_STEPS)]
+    torch.save(res, os.path.join(out_dir, f"bert_tp{hvd.rank()}.pt"))
+    hvd.shutdown()
+    return 0
+
+
+def phase_bert_tp(torch, dev, card) -> None:
+    """[bert_tp_gloo_2rank]: BERT at bert_large width (hidden 1024, 16
+    heads, FFN 4096, vocab 30522), depth cut to BERT_TP_LAYERS, S
+    BERT_TP_SEQ, BERT_TP_ROWS rows, fp32 compute, on two gloo ranks over
+    ``{tp: 2}`` against one process: the loss, each leaf's gradient
+    reassembled from the ranks' shards, BERT_TP_STEPS AdamW steps."""
+    from horovod_tpu_torch.models import bert
+    cfg = bert_tp_cfg(torch)
+    model = bert.Bert(cfg, dev)
+    bert.init_bert(model, 0)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    batch = zoo_batch(torch, "bert_large", BERT_TP_ROWS, BERT_TP_SEQ, dev,
+                      seed=4)
+    with tempfile.TemporaryDirectory(prefix="bert_tp_") as out_dir:
+        torch.save({"state": init,
+                    "batch": {k: v.cpu() for k, v in batch.items()}},
+                   os.path.join(out_dir, "inputs.pt"))
+        t0 = time.perf_counter()
+        _run_gloo_ranks(out_dir, 2, "bert_tp", "bert_tp_gloo_2rank")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"bert_tp{r}.pt"))
+                 for r in range(2)]
+    loss, _ = zoo_loss(torch, "bert_large", model, batch)
+    loss.backward()
+    loss = float(loss.detach())
+    grads = {k: p.grad.detach().cpu().clone()
+             for k, p in model.named_parameters()}
+    opt = bert.adamw(model.parameters(), 1e-4)
+    step = bert.make_bert_train_step(model)
+    losses = [float(step(model, opt, batch)[2]) for _ in range(BERT_TP_STEPS)]
+    got = {}
+    for k in grads:
+        d = bert.tp_split_dim(k)
+        parts = [r["grads"][k] for r in ranks]
+        got[k] = parts[0] if d is None else torch.cat(parts, d)
+    got["word_embeddings.embedding"] = \
+        got["word_embeddings.embedding"][:cfg.vocab_size]
+    # the key bias's true gradient is 0 (a per-query constant leaves the
+    # softmax unchanged): both sides hold rounding noise there, so each
+    # leaf's distance is taken relative to at least BERT_TP_GRAD_FLOOR of
+    # the largest leaf's norm
+    floor = BERT_TP_GRAD_FLOOR * max(float(g.double().norm())
+                                     for g in grads.values())
+    errs = grad_errors(got, grads, floor)
+    worst = max(errs, key=lambda k: errs[k][0])
+    loss_rel = max(abs(r["loss"] - loss) / abs(loss) for r in ranks)
+    step_rel = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], losses))
+    say("bert_tp_gloo_2rank", width="bert_large H1024 16x64 F4096 V30522",
+        layers=f"{BERT_TP_LAYERS} (cut from 24)", seq=BERT_TP_SEQ,
+        rows=BERT_TP_ROWS, compute="fp32", seconds=wall,
+        loss=ranks[0]["loss"], one_process_loss=loss,
+        loss_rel=loss_rel, tol_loss=BERT_TP_LOSS_TOL, worst_grad=worst,
+        grad_rel_l2=errs[worst][0], grad_norm_floor=floor,
+        tol_grad_rel_l2=BERT_TP_GRAD_TOL,
+        step_losses=",".join(f"{x:.6f}" for x in ranks[0]["losses"]),
+        one_process_step_losses=",".join(f"{x:.6f}" for x in losses),
+        step_rel=step_rel, tol_step=BERT_TP_STEP_TOL, card=card)
+    check(loss_rel <= BERT_TP_LOSS_TOL, f"bert_tp: loss {loss_rel} off")
+    check(errs[worst][0] <= BERT_TP_GRAD_TOL,
+          f"bert_tp: gradient of {worst} is {errs[worst][0]} off")
+    check(step_rel <= BERT_TP_STEP_TOL, f"bert_tp: AdamW losses {step_rel} "
+                                        f"off one process's")
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2945,6 +3527,13 @@ def main() -> int:
                   for got in runs), f"a kernel did not run in every run of "
                                     f"[{ph}]")
 
+    # -- the model zoo: ResNet-50 (both stems), VGG-16, Inception V3 and
+    # BERT-Large at full width on the card; ResNet-50 over two gloo ranks
+    # with the global batch's BN statistics; BERT over tp
+    phase_zoo(torch, dev, card)
+    phase_zoo_dp(torch, dev, card)
+    phase_bert_tp(torch, dev, card)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
@@ -2967,6 +3556,10 @@ if __name__ == "__main__":
             sys.exit(single_rank_main(sys.argv[2]))
         if role == "checkpoint":
             sys.exit(ckpt_rank_main(sys.argv[2]))
+        if role == "zoo_dp":
+            sys.exit(zoo_dp_rank_main(sys.argv[2]))
+        if role == "bert_tp":
+            sys.exit(bert_tp_rank_main(sys.argv[2]))
         if role in PIPELINE_PHASES:
             sys.exit(pipeline_rank_main(sys.argv[2], role))
         sys.exit(layout_rank_main(sys.argv[2], role))

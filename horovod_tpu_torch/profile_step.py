@@ -47,7 +47,8 @@ _QUANTIZE_KERNELS = ("quantize_kernel", "fused_sgd0_kernel",
                      "fused_sgd_kernel", "fused_adam_kernel")
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
+    """The group a kernel's device time is booked to, by its name."""
     low = name.lower()
     if "flash_fwd_kernel" in name:
         return "port: flash_attn_fwd"
@@ -59,6 +60,8 @@ def _group(name: str) -> str:
         return "torch.cat (bucket packing and RoPE)"
     if any(k in name for k in _QUANTIZE_KERNELS):   # dequantize_kernel too
         return "port: quantize.cu"
+    if any(s in low for s in ("conv", "cudnn", "fprop", "dgrad", "wgrad")):
+        return "convolution (cuDNN)"
     if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "cublas",
                               "nvjet", "sm90_")):
         return "matmul (cuBLAS)"
@@ -151,7 +154,7 @@ def profile(steps: int, optimizer: str = "adamw", dp: bool = False,
     busy_us = sum(t for t, _ in by_name.values())
     groups: dict = {}
     for name, (t, _) in by_name.items():
-        g = _group(name)
+        g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + t
     # device time of the kernels issued inside the library's marked ranges
     # (hvd.pack, hvd.reduce, hvd.accumulate, hvd.guard), whatever their name
@@ -181,7 +184,7 @@ def profile(steps: int, optimizer: str = "adamw", dp: bool = False,
                                       sorted(ranges.items())},
         "top_kernels": [{"name": name[:120], "ms_per_step": t / 1e3 / steps,
                          "calls_per_step": n / steps,
-                         "share": t / busy_us, "group": _group(name)}
+                         "share": t / busy_us, "group": kernel_group(name)}
                         for name, (t, n) in top],
     }
 

@@ -632,6 +632,132 @@ def test_device_prefetch_side_stream_equal_batches_no_reuse(dev):
                                                .sum()), rel=1e-12)
 
 
+
+# -- the model zoo and sync-BN (no kernel of their own: cuDNN and cuBLAS) ---
+
+ZOO_SMALL = [("resnet50", {"stem": "conv"}, 64),
+             ("resnet50", {"stem": "s2d"}, 64), ("resnet101", {}, 64),
+             ("vgg16", {"image_size": 64}, 64), ("inception3", {}, 299)]
+
+
+@pytest.mark.parametrize("name,kw,size", ZOO_SMALL)
+def test_zoo_bf16_forward_on_card_matches_fp32_on_cpu(dev, name, kw, size):
+    """Full width, batch 4, train mode (batch statistics), a small input
+    (Inception at its own 299: at 95 its 1x1 last blocks normalize over 4
+    values): the card's bf16 loss within 2e-2 of the CPU's fp32 one
+    (PERF.md §2), the card's fp32 logits within 5e-2 of the CPU's largest
+    (chip_smoke's bound; a deep random conv-BN-ReLU stack multiplies
+    rounding differences, see ZOO_LOGITS_PRINTED there)."""
+    from horovod_tpu_torch.models import get_model
+    from horovod_tpu_torch.models._flax import init_state
+    torch.backends.cudnn.allow_tf32 = False
+    ref = get_model(name, dtype=torch.float32, device="cpu", **kw)
+    init_state(ref, 0)
+    sd = ref.state_dict()
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(4, 3, size, size, generator=g)
+    y = torch.randint(0, 1000, (4,), generator=g)
+    out = {}
+    for tag, d, dtype in (("cpu", "cpu", torch.float32),
+                          ("fp32", dev, torch.float32),
+                          ("bf16", dev, torch.bfloat16)):
+        m = get_model(name, dtype=dtype, device=d, **kw)
+        m.load_state_dict(sd)
+        m.train()
+        if hasattr(m, "dropout"):
+            m.dropout = 0.0
+        with torch.no_grad():
+            logits = m(x.to(d)).float().cpu()
+        loss = torch.nn.functional.cross_entropy(logits, y)
+        out[tag] = (logits, float(loss))
+    scale = float(out["cpu"][0].abs().max())
+    assert float((out["fp32"][0] - out["cpu"][0]).abs().max()) <= 5e-2 * scale
+    assert abs(out["bf16"][1] - out["cpu"][1]) <= 2e-2 * abs(out["cpu"][1])
+
+
+@pytest.mark.parametrize("name", ["bert_base", "bert_large"])
+def test_bert_bf16_forward_on_card_matches_fp32_on_cpu(dev, name):
+    """Two layers at full width, B 4, S 32: the card's bf16 MLM logits
+    within 5e-2 of the largest fp32 logit on the CPU, the loss within
+    2e-2."""
+    import dataclasses
+    from horovod_tpu_torch.models import bert
+    cfg = dataclasses.replace(getattr(bert, name)(torch.float32),
+                              num_layers=2)
+    ref = bert.Bert(cfg, "cpu")
+    bert.init_bert(ref, 0)
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+    b = {"input_ids": ids, "token_type_ids": torch.zeros_like(ids),
+         "attention_mask": torch.ones_like(ids, dtype=torch.bool),
+         "mlm_labels": torch.randint(0, cfg.vocab_size, (4, 32), generator=g),
+         "mlm_mask": (torch.rand(4, 32, generator=g) < 0.15).float(),
+         "nsp_labels": torch.randint(0, 2, (4,), generator=g)}
+    out = {}
+    for tag, d, dtype in (("cpu", "cpu", torch.float32),
+                          ("bf16", dev, torch.bfloat16)):
+        m = bert.Bert(dataclasses.replace(cfg, dtype=dtype), d)
+        m.load_state_dict(ref.state_dict())
+        bd = {k: v.to(d) for k, v in b.items()}
+        with torch.no_grad():
+            mlm, nsp = m(bd["input_ids"], bd["token_type_ids"],
+                         bd["attention_mask"])
+            loss = bert.pretrain_loss(mlm, nsp, bd["mlm_labels"],
+                                      bd["mlm_mask"], bd["nsp_labels"])
+        out[tag] = (mlm.float().cpu(), float(loss))
+    scale = float(out["cpu"][0].abs().max())
+    assert float((out["bf16"][0] - out["cpu"][0]).abs().max()) <= 5e-2 * scale
+    assert abs(out["bf16"][1] - out["cpu"][1]) <= 2e-2 * abs(out["cpu"][1])
+
+
+def test_sync_batch_norm_over_nccl_world_of_one(nccl_mesh):
+    """SyncBatchNorm with the dp axis of an NCCL world of one (an axis of
+    size 1 reduces nothing): value, gradients and the unbiased running
+    variance equal the CPU's."""
+    from horovod_tpu_torch.train.sync_batch_norm import SyncBatchNorm
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 6, generator=g) * 2 + 1
+    w = torch.randn(16, 6, generator=g)
+    out = {}
+    for d in ("cpu", "cuda"):
+        m = SyncBatchNorm(6, axes=[nccl_mesh.axis("dp")], device=d).train()
+        xs = x.to(d).clone().requires_grad_()
+        y = m(xs)
+        (y * w.to(d)).sum().backward()
+        out[d] = [t.detach().cpu() for t in (y, xs.grad, m.scale.grad,
+                                             m.bias.grad, m.mean, m.var)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_resnet_step_on_nccl_world_of_one_matches_cpu(nccl_mesh):
+    """``make_resnet_train_step`` on the dp mesh of an NCCL world of one
+    (its gradient sync runs) against the same step on the CPU without a
+    mesh, in fp64 (as the CPU tests against JAX: in fp32 a ReLU input
+    within rounding of zero may land on either side): loss, parameters
+    and BN statistics."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.models._flax import init_state
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(8, 3, 64, 64, generator=g, dtype=torch.float64)
+    y = torch.randint(0, 10, (8,), generator=g)
+    init = init_state(resnet.ResNet([1, 1, 1, 1], 10, device="cpu"),
+                      0).state_dict()
+    res = {}
+    for d, mesh in (("cpu", None), ("cuda", nccl_mesh)):
+        m = resnet.ResNet([1, 1, 1, 1], 10, torch.float64, device=d,
+                          mesh=mesh)
+        m.load_state_dict(init)
+        m.double()
+        opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+        _, _, loss = resnet.make_resnet_train_step(m, mesh)(
+            m, opt, x.to(d), y.to(d))
+        res[d] = (float(loss), {k: v.cpu() for k, v in m.state_dict().items()})
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-6)
+    for k, v in res["cpu"][1].items():
+        assert float((res["cuda"][1][k] - v).abs().max()) <= \
+            1e-6 * max(1.0, float(v.abs().max())), k
+
 if __name__ == "__main__":
     import sys
     from torch_port_worker import worker_main

@@ -34,7 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 150
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_port_worker import spawn_world  # noqa: E402
+from torch_port_worker import log_time, spawn_world  # noqa: E402
 
 if __name__ != "__main__":
     import functools
@@ -629,9 +629,12 @@ def _worker_main(argv) -> int:
         return 0
     torch.set_num_threads(1)
     import horovod_tpu_torch as hvd
+    log_time("imported")
     hvd.init()
+    log_time("initialized")
     rank = hvd.rank()
     res = WORKERS[args.worker]()
+    log_time("ran its cases")
     assert not [m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "horovod_tpu")], "a worker imported JAX"
     np.savez(os.path.join(args.out, f"{args.worker}.rank{rank}.npz"), **res)

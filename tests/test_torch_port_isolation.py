@@ -291,3 +291,38 @@ def test_checkpoint_modules_import_and_export():
     for name in ("CheckpointCallback", "BroadcastGlobalVariablesCallback",
                  "MetricAverageCallback", "LearningRateWarmupCallback"):
         assert getattr(callbacks, name).__doc__
+
+
+def test_zoo_modules_import_and_export():
+    """The model zoo's and sync-BN's modules stand alone: each has its
+    docstring, imports none of JAX, flax, optax or horovod_tpu (in a fresh
+    process), and the model package indexes the five networks."""
+    code = (
+        "import sys\n"
+        "from horovod_tpu_torch.models import (MODEL_ZOO, _flax, bert,\n"
+        "    inception, resnet, vgg)\n"
+        "from horovod_tpu_torch.train import sync_batch_norm\n"
+        "for m in (_flax, bert, inception, resnet, vgg, sync_batch_norm):\n"
+        "    assert m.__doc__, m\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'flax', 'ml_dtypes', 'horovod_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert len(MODEL_ZOO) == 6, MODEL_ZOO\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("name", ["resnet50", "resnet101", "vgg16",
+                                  "inception3"])
+def test_zoo_model_without_device_raises_without_cuda(no_cuda, name):
+    from horovod_tpu_torch.models import get_model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(name)
+
+
+def test_bert_without_device_raises_without_cuda(no_cuda):
+    from horovod_tpu_torch.models import bert
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bert.Bert(bert.bert_base())
