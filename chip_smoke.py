@@ -222,6 +222,42 @@ cuBLAS; none of the eight kernels is on their path):
   each leaf's gradient reassembled from both shards, and BERT_TP_STEPS
   AdamW steps' losses.
 
+The serving slice adds three phases (no kernel of their own: the decode
+math is plain fp32 torch, as the JAX package's is XLA code, and none of
+the eight kernels is on its path):
+
+* ``[serve_generate]``: ``GenerateEngine`` with the flagship (fp32,
+  seed-0 weights) at SERVE_SLOTS slots, the default 64 KiB pages and
+  SERVE_CHUNK-token prefill chunks serves SERVE_REQUESTS seeded requests
+  (prompts SERVE_PROMPT, max_new SERVE_NEW) in two waves, the second
+  while the first decodes. Checks: (a) one CUDA graph capture of
+  ``gen_decode_step`` and of ``gen_prefill_chunk`` over the whole phase;
+  (b) SERVE_RERUNS requests rerun one at a time give bit-identical
+  tokens; (c) SERVE_ORACLE requests equal the card's
+  ``reference_greedy_decode`` up to the first step whose top-two logit
+  margin is under SERVE_TIE_REL of the largest logit (printed); (d)
+  ``request_level_generate`` over the same requests takes strictly more
+  decode steps for identical tokens; (e) on a churned slot state the
+  replayed decode step gives the eager step's tokens and pools to the bit
+  (the scratch page aside). It prints tokens/s, TTFT and ITL p50/p99, the
+  decode step's median host ms replayed and eager, its device ms
+  (``time_ms`` of the graph replay and of the eager body), the launches
+  of an eager step, occupancy, the pages high-water mark, and the bytes a
+  step moves beside their bound at 3.35 TB/s.
+* ``[serve_http]``: a generate-mode ``ReplicaServer`` on the card serves
+  the flagship from a store holding one commit behind a ``Router``:
+  SERVE_HTTP concurrent ``/generate`` requests plus two more copies of two
+  ids (one token stream per id), a second commit (seed-1 weights, step 2)
+  written mid-run and swapped in (later requests give the tokens of an
+  engine of the same geometry on the new weights, version 2), a
+  ``/drain`` once SERVE_HTTP_AFTER more requests are admitted (all
+  answered, then DRAINED); zero failed requests and the router's books
+  closed exactly once; one ``/infer`` of the demo model.
+* ``[serve_fleet]``: a ``ReplicaFleet`` of two generate-mode replica
+  processes on the card (``--flagship``), SERVE_FLEET requests, one
+  replica SIGKILLed mid-run: zero failed requests, streams equal to this
+  process's engine, the exit a failure, the fleet healed to two.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -376,6 +412,21 @@ BERT_TP_LOSS_TOL = 1e-4
 BERT_TP_GRAD_TOL = 1e-3
 BERT_TP_GRAD_FLOOR = 1e-3  # of the largest leaf's gradient norm
 BERT_TP_STEP_TOL = 1e-3
+SERVE_SLOTS = 32          # [serve_*]: decode slots of every engine
+SERVE_CHUNK = 32          # prefill chunk tokens
+SERVE_REQUESTS = 64       # [serve_generate]: two waves of 32
+SERVE_PROMPT = (8, 192)   # prompt tokens, both ends included
+SERVE_NEW = (8, 64)       # max_new, both ends included
+SERVE_CONTEXT = 256       # prompt + max_new at most: the flagship's max_seq
+SERVE_WAVE_STEPS = 12     # engine steps between the two waves
+SERVE_RERUNS = 8          # (b): requests rerun one at a time
+SERVE_ORACLE = 4          # (c): requests held to reference_greedy_decode
+SERVE_TIE_REL = 1e-4      # a near tie: top-two logit margin < this x max|logit|
+SERVE_TIMED = 20          # decode steps timed, replayed and eager
+SERVE_HTTP = 16           # [serve_http]: concurrent /generate requests
+SERVE_HTTP_AFTER = 8      # requests after the swap, and again under the drain
+SERVE_FLEET = 8           # [serve_fleet]: requests through the fleet
+SERVE_TIMEOUT_S = 240     # every wait of the serving phases
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3327,6 +3378,538 @@ def phase_bert_tp(torch, dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+def serve_requests(n: int, seed: int, vocab: int) -> list:
+    """``n`` seeded ``(prompt, max_new)`` pairs: prompts of SERVE_PROMPT
+    tokens, max_new in SERVE_NEW, prompt + max_new at most
+    SERVE_CONTEXT."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        plen = int(rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        hi = min(SERVE_NEW[1], SERVE_CONTEXT - plen)
+        out.append((rng.randint(0, vocab, plen).tolist(),
+                    int(rng.randint(SERVE_NEW[0], hi + 1))))
+    return out
+
+
+def serve_engine(torch, dev, params, cfg):
+    from horovod_tpu_torch.serving.generate import GenerateEngine
+    return GenerateEngine(params, cfg, n_slots=SERVE_SLOTS,
+                          prefill_chunk=SERVE_CHUNK, device=dev)
+
+
+def serve_until_done(engine, reqs) -> None:
+    from horovod_tpu_torch.serving.generate.scheduler import DONE
+    n = 0
+    while any(r.state != DONE for r in reqs):
+        engine.step_once()
+        n += 1
+        check(n < 200_000, "a serving engine did not converge")
+
+
+def serve_tokens(engine, jobs, prefix: str) -> list:
+    """Token streams of ``jobs`` run together on ``engine``."""
+    reqs = [engine.submit(f"{prefix}{i}", p, m)
+            for i, (p, m) in enumerate(jobs)]
+    serve_until_done(engine, reqs)
+    return [r.tokens for r in reqs]
+
+
+def serve_top_kernels(torch, fn, n: int = 6) -> str:
+    """The ``n`` kernels of one ``fn`` call that take most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            t, c = by.get(e.name, (0.0, 0))
+            by[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return ";".join(f"{name[:60].replace(' ', '')}x{c}:{t:.4f}"
+                    for name, (t, c) in top)
+
+
+def serve_step_bytes(eng) -> tuple:
+    """(bytes the decode step must move on the engine's current slot
+    state, weights' share, bytes of the pages it gathers as written):
+    every weight read once (the tied embedding for the logits), the K and
+    V of the positions the active slots attend to (``length + 1`` each,
+    every layer) and the K/V they write; the step as written gathers
+    every slot's whole page table instead."""
+    weights = sum(t.numel() * t.element_size() for t in
+                  [eng.params["embed"], eng.params["ln_f"],
+                   *eng.params["layers"].values()])
+    k = eng._k_pages
+    L, _, pt, width = k.shape
+    row = 2 * L * width * k.element_size()      # K and V of one position
+    active = eng._active != 0
+    attended = int((eng._lengths[active] + 1).sum())
+    gathered = row * eng.n_slots * eng.plan.pages_per_slot * pt
+    return weights + row * (attended + int(active.sum())), weights, gathered
+
+
+def phase_serve_generate(torch, dev, card) -> dict:
+    """[serve_generate]: the flagship at full width (fp32, 32 slots, the
+    default page bytes, prefill chunk 32) serves 64 seeded requests in two
+    waves, the second while the first decodes, then (a) one capture of
+    each step function over the whole phase, (b) 8 requests rerun one at
+    a time equal to the bit, (c) 4 requests against the card's
+    ``reference_greedy_decode`` up to the first near tie, (d) the
+    request-level gang over the same requests: more decode steps, the
+    same tokens, (e) the replayed decode step against the eager one on a
+    churned slot state, tokens and pools to the bit (outside the scratch
+    page, which masked lanes write in no fixed order)."""
+    from horovod_tpu_torch.metrics.registry import default_registry
+    from horovod_tpu_torch.models import reference_greedy_decode
+    from horovod_tpu_torch.profiling import compile_watch
+    from horovod_tpu_torch.serving.generate import (flagship_gen_setup,
+                                                    request_level_generate)
+    from horovod_tpu_torch.serving.ledger import quantile
+    t_phase = time.perf_counter()
+    params, cfg = flagship_gen_setup(device=dev)
+    compile_watch.reset_counts()
+    eng = serve_engine(torch, dev, params, cfg)
+    plan = eng.plan
+    # the default 64 KiB page: at the flagship's 16 KiB of K+V a token,
+    # 4 tokens a page, 64 pages a slot, 2,049 pages with the scratch one
+    token_bytes = 2 * cfg.n_layers * cfg.d_model * 4
+    page_tokens = 65536 // token_bytes
+    check((plan.page_tokens, plan.pages_per_slot, plan.total_pages + 1) ==
+          (page_tokens, -(-cfg.max_seq // page_tokens),
+           SERVE_SLOTS * -(-cfg.max_seq // page_tokens) + 1),
+          f"[serve_generate]: the page plan is {plan}")
+    jobs = serve_requests(SERVE_REQUESTS, 2, cfg.vocab_size)
+    stamps = {}
+
+    def submit(i, prefix="w"):
+        times = stamps.setdefault(f"{prefix}{i}", [])
+        return eng.submit(f"{prefix}{i}", jobs[i][0], jobs[i][1],
+                          on_token=lambda _t, ts=times:
+                          ts.append(time.monotonic()))
+
+    # one warm-up request captures both step functions (the only captures
+    # of the phase), so the waves below time the steady state
+    t0 = time.monotonic()
+    serve_until_done(eng, [eng.submit("warm", jobs[0][0][:SERVE_CHUNK + 1],
+                                      2)])
+    first_request_s = time.monotonic() - t0
+    reg = default_registry()
+
+    def engine_seconds():
+        return [reg.counter(f"hvd_serving_{k}_seconds_total").value
+                for k in ("decode", "prefill")]
+
+    half = SERVE_REQUESTS // 2
+    torch.cuda.synchronize()
+    secs0 = engine_seconds()
+    steps0, chunks0 = eng.decode_steps_total, eng.prefill_chunks_total
+    t0 = time.monotonic()
+    reqs = [submit(i) for i in range(half)]
+    for _ in range(SERVE_WAVE_STEPS):
+        eng.step_once()
+    decoding_at_wave2 = len(eng.scheduler.decoding())
+    check(decoding_at_wave2 > 0, "[serve_generate]: the second wave must "
+                                 "arrive while the first decodes")
+    reqs += [submit(i) for i in range(half, SERVE_REQUESTS)]
+    serve_until_done(eng, reqs)
+    wall = time.monotonic() - t0
+    decode_s, prefill_s = (b - a for a, b in zip(secs0, engine_seconds()))
+    steps = eng.decode_steps_total - steps0
+    chunks = eng.prefill_chunks_total - chunks0
+    tokens = sum(len(r.tokens) for r in reqs)
+    check(all(len(r.tokens) == r.max_new and r.finish_reason == "length"
+              for r in reqs), "[serve_generate]: a request fell short")
+    ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    itl = sorted(b - a for ts in stamps.values() for a, b in zip(ts, ts[1:]))
+    occupancy = sum(r.decode_steps for r in reqs) / (steps * SERVE_SLOTS)
+    check(eng.pool.in_use == 0, "[serve_generate]: pages leaked")
+    high_water = eng.pool.high_water
+
+    # (b) one at a time on the same engine: bit-identical streams
+    for i in range(0, SERVE_REQUESTS, SERVE_REQUESTS // SERVE_RERUNS):
+        lone = eng.submit(f"s{i}", jobs[i][0], jobs[i][1])
+        serve_until_done(eng, [lone])
+        check(lone.tokens == reqs[i].tokens,
+              f"[serve_generate]: request {i} alone differs from its "
+              f"continuous run")
+
+    # (c) the oracle on the card, up to the first near tie
+    ties = []
+    for i in range(SERVE_ORACLE):
+        ref, margins = reference_greedy_decode(
+            params, cfg, jobs[i][0], jobs[i][1], device=dev,
+            return_margins=True)
+        tie = next((j for j, (m, mx) in enumerate(margins)
+                    if m < SERVE_TIE_REL * mx), None)
+        upto = len(ref) if tie is None else tie
+        check(reqs[i].tokens[:upto] == ref[:upto],
+              f"[serve_generate]: request {i} diverges from the oracle "
+              f"before any near tie ({reqs[i].tokens} vs {ref})")
+        if tie is not None:
+            ties.append(f"{i}@{tie}:{margins[tie][0]:.3g}/"
+                        f"{margins[tie][1]:.3g}")
+
+    # (d) the request-level gang: strictly more decode steps, same tokens
+    before = eng.decode_steps_total
+    base = request_level_generate(eng, jobs)
+    gang_steps = eng.decode_steps_total - before
+    check(gang_steps > steps, f"[serve_generate]: gang {gang_steps} decode "
+                              f"steps, continuous {steps}")
+    check(all(b.tokens == r.tokens for b, r in zip(base, reqs)),
+          "[serve_generate]: the gang's tokens differ")
+
+    # (e) replayed against eager on a churned slot state, then timed
+    # churned: sequences have finished and later ones took their slots,
+    # while others still decode
+    churn = [eng.submit(f"e{i}", jobs[i][0], jobs[i][1])
+             for i in range(SERVE_SLOTS + SERVE_SLOTS // 2)]
+    for _ in range(2_000):
+        eng.step_once()
+        if any(r.state == "done" for r in churn) and any(
+                r.state == "decode" for r in churn[SERVE_SLOTS:]) and \
+                len(eng.scheduler.decoding()) > 1:
+            break
+    check(any(r.state == "done" for r in churn)
+          and any(r.state == "decode" for r in churn[SERVE_SLOTS:]),
+          "[serve_generate]: no churned state to compare on")
+    k0, v0 = eng._k_pages.clone(), eng._v_pages.clone()
+    replayed = eng.decode_step_now()
+    k1, v1 = eng._k_pages.clone(), eng._v_pages.clone()
+    eng._k_pages.copy_(k0)
+    eng._v_pages.copy_(v0)
+    eager = eng.decode_step_now(eager=True)
+    same = (replayed == eager).all() \
+        and torch.equal(k1[:, :-1], eng._k_pages[:, :-1]) \
+        and torch.equal(v1[:, :-1], eng._v_pages[:, :-1])
+    check(bool(same), "[serve_generate]: the replayed decode step differs "
+                      "from the eager one")
+    check(not torch.equal(k1[:, :-1], k0[:, :-1]),
+          "[serve_generate]: the decode step wrote no K")
+    del k0, v0, k1, v1
+
+    def host_ms(eager):
+        out = []
+        for _ in range(SERVE_TIMED):
+            t = time.perf_counter()
+            eng.decode_step_now(eager=eager)
+            out.append(1e3 * (time.perf_counter() - t))
+        return sorted(out)[SERVE_TIMED // 2]
+
+    n_bytes, w_bytes, gathered_bytes = serve_step_bytes(eng)
+    active_slots = int((eng._active != 0).sum())
+    replay_ms, eager_ms = host_ms(False), host_ms(True)
+    dev_in = eng._decode_fn.dev_in
+    # device time of one replay: replays queued behind a spin kernel (the
+    # prefill graph replays the last chunk it ran, into freed pages)
+    replay_dev_ms = time_ms(lambda: eng._decode_fn.graph.replay())
+    prefill_dev_ms = time_ms(lambda: eng._prefill_fn.graph.replay())
+    eager_prof = device_breakdown(torch, lambda: eng._decode_body(dev_in))
+    replay_prof = device_breakdown(torch,
+                                   lambda: eng._decode_fn.graph.replay())
+    top = serve_top_kernels(torch, lambda: eng._decode_body(dev_in))
+    serve_until_done(eng, churn)
+
+    # (a) over everything above: one capture of each step function
+    counts = compile_watch.per_function_compiles()
+    check(counts.get("gen_decode_step") == 1
+          and counts.get("gen_prefill_chunk") == 1
+          and eng.captures == {"gen_decode_step": 1,
+                               "gen_prefill_chunk": 1},
+          f"[serve_generate]: captures {counts} {eng.captures}")
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    say("serve_generate",
+        model="flagship V32000 M512 H8x64 L4 F2048 max_seq256 fp32",
+        slots=SERVE_SLOTS, prefill_chunk=SERVE_CHUNK,
+        page_tokens=plan.page_tokens, pages=plan.total_pages + 1,
+        requests=SERVE_REQUESTS, decoding_at_wave2=decoding_at_wave2,
+        first_request_s_with_captures=first_request_s,
+        tokens=tokens, seconds=wall, tokens_per_s=tokens / wall,
+        decode_share=decode_s / wall, prefill_share=prefill_s / wall,
+        ttft_p50_ms=1e3 * quantile(ttft, 0.5),
+        ttft_p99_ms=1e3 * quantile(ttft, 0.99),
+        itl_p50_ms=1e3 * quantile(itl, 0.5),
+        itl_p99_ms=1e3 * quantile(itl, 0.99),
+        decode_steps=steps, prefill_chunks=chunks, gang_decode_steps=gang_steps,
+        mean_slot_occupancy=occupancy, pages_high_water=high_water,
+        captures=",".join(f"{k}:{v}" for k, v in sorted(counts.items())),
+        decode_step_ms_replayed=replay_ms, decode_step_ms_eager=eager_ms,
+        device_ms_replayed=replay_dev_ms,
+        prefill_chunk_device_ms_replayed=prefill_dev_ms,
+        device_busy_ms_eager=eager_prof["device_busy_ms"],
+        device_busy_ms_replay_profiled=replay_prof["device_busy_ms"],
+        launches_per_eager_step=eager_prof["launches"],
+        kernels_seen_in_replay=replay_prof["launches"],
+        eager_device_ms_by_group=eager_prof["device_ms_by_group"],
+        eager_top_kernels=top, timed_state_active_slots=active_slots,
+        decode_step_bytes=n_bytes, weight_bytes=w_bytes,
+        pages_gathered_bytes=gathered_bytes, bound_ms_at_3_35TBps=bound,
+        reruns_equal=SERVE_RERUNS, oracle_equal=SERVE_ORACLE,
+        near_ties=";".join(ties) or "none", tie_rel=SERVE_TIE_REL,
+        replay_equals_eager=True, phase_s=time.perf_counter() - t_phase,
+        card=card)
+    return {"engine": eng, "cfg": cfg}
+
+
+def phase_serve_http(torch, dev, card, served: dict) -> None:
+    """[serve_http]: a generate-mode ``ReplicaServer`` on the card serves
+    the flagship from a store holding one commit, behind an in-process
+    ``Router``: SERVE_HTTP concurrent ``/generate`` requests plus two more
+    copies of two ids, a second commit (seed-1 weights, step 2) written
+    mid-run and swapped in, SERVE_HTTP_AFTER requests after the swap (the
+    tokens of an engine of the same geometry on the new weights), then
+    SERVE_HTTP_AFTER more with ``/drain`` posted once all are admitted.
+    Checks: one token stream per id, zero failed requests, the books
+    closed exactly once, DRAINED, every stream (those live at the swap
+    too) the stream of the weights its version names; and one ``/infer``
+    of the demo model."""
+    import threading
+    import urllib.request
+
+    from horovod_tpu_torch.checkpoint import ShardedCheckpointer
+    from horovod_tpu_torch.serving import ReplicaServer, Router
+    from horovod_tpu_torch.serving.generate import flagship_gen_setup
+    t_phase = time.perf_counter()
+    ref, cfg = served["engine"], served["cfg"]
+    w0, _ = flagship_gen_setup(seed=0, device="cpu")
+    w1, _ = flagship_gen_setup(seed=1, device="cpu")
+    lock = threading.Lock()
+    results, errors = {}, []
+
+    def fire(router, rid, prompt, max_new):
+        try:
+            doc = router.submit_generate(prompt, max_new=max_new,
+                                         req_id=rid)
+        except Exception as e:
+            with lock:
+                errors.append(f"{rid}: {e!r}")
+            return
+        with lock:
+            results.setdefault(rid, []).append(doc)
+
+    def wave(router, calls):
+        threads = [threading.Thread(target=fire, args=(router, *c),
+                                    daemon=True) for c in calls]
+        for t in threads:
+            t.start()
+        return threads
+
+    def join(threads):
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+        check(not any(t.is_alive() for t in threads),
+              "[serve_http]: a request never returned")
+
+    with tempfile.TemporaryDirectory(prefix="serve_http_") as store_dir:
+        store = ShardedCheckpointer(store_dir, rank=0, world_size=1)
+        store.save(1, {"params": w0}, wait=True)
+        rep = ReplicaServer(mode="generate", gen_model=(w0, cfg),
+                            store_dir=store_dir, swap_poll_s=0.1,
+                            device=dev, replica_id="h0",
+                            gen_kwargs={"n_slots": SERVE_SLOTS,
+                                        "prefill_chunk": SERVE_CHUNK}
+                            ).start()
+        router = Router([("127.0.0.1", rep.port)], max_inflight=64,
+                        hedge_ms=0, attempt_timeout_s=SERVE_TIMEOUT_S,
+                        default_deadline_s=SERVE_TIMEOUT_S)
+        try:
+            check(rep._version == 1, "[serve_http]: step 1 not loaded")
+            jobs_a = serve_requests(SERVE_HTTP, 3, cfg.vocab_size)
+            calls = [(f"a{i}", p, m) for i, (p, m) in enumerate(jobs_a)]
+            calls += [(f"a{i}", *jobs_a[i]) for i in (0, 1) for _ in (0, 1)]
+            t_a = wave(router, calls)
+            time.sleep(0.3)
+            t_save = time.perf_counter()
+            store.save(2, {"params": w1}, wait=True)
+            join(t_a)
+            deadline = time.monotonic() + SERVE_TIMEOUT_S
+            while rep._version != 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            swap_s = time.perf_counter() - t_save
+            check(rep._version == 2, "[serve_http]: step 2 never swapped in")
+            jobs_b = serve_requests(SERVE_HTTP_AFTER, 4, cfg.vocab_size)
+            join(wave(router, [(f"b{i}", p, m)
+                               for i, (p, m) in enumerate(jobs_b)]))
+            jobs_c = serve_requests(SERVE_HTTP_AFTER, 5, cfg.vocab_size)
+            t_c = wave(router, [(f"c{i}", p, m)
+                                for i, (p, m) in enumerate(jobs_c)])
+            deadline = time.monotonic() + SERVE_TIMEOUT_S
+            while time.monotonic() < deadline:
+                # in flight or already answered (cached before its
+                # in-flight entry goes): admitted past the engine's queue
+                with rep._pending_lock:
+                    admitted = len({k for k in (*rep._pending,
+                                                *rep._resp_cache)
+                                    if k.startswith("c")})
+                if admitted == SERVE_HTTP_AFTER:
+                    break
+                time.sleep(0.002)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{rep.port}/drain", data=b"{}",
+                method="POST")
+            urllib.request.urlopen(req, timeout=10).read()
+            join(t_c)
+            drained = rep.wait_drained(SERVE_TIMEOUT_S)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{rep.port}/healthz", timeout=10) as r:
+                health = json.loads(r.read())
+            acct = router.accounting()
+        finally:
+            router.close()
+            rep.stop()
+            store.close()
+    check(not errors, f"[serve_http]: failed requests {errors[:3]}")
+    check(admitted == SERVE_HTTP_AFTER, "[serve_http]: the drain came "
+                                        "before every request was admitted")
+    check(drained and health["drained"], "[serve_http]: not DRAINED")
+    n_sent = len(calls) + 2 * SERVE_HTTP_AFTER
+    check(acct["accepted"] == acct["answered_ok"] == n_sent
+          and not acct["unanswered"] and not acct["answered_twice"]
+          and acct["outcomes"].get("failed", 0) == 0,
+          f"[serve_http]: the books {acct}")
+    for i, (p, m) in enumerate(jobs_a):
+        docs = results[f"a{i}"]
+        check(len({(tuple(d["tokens"]), d["version"]) for d in docs}) == 1
+              and all(d["tokens_emitted"] == m for d in docs)
+              and len(docs) == (3 if i < 2 else 1),
+              f"[serve_http]: id a{i} returned {len(docs)} copies or "
+              f"several streams")
+    # the first wave was live when step 2 landed: each of its streams must
+    # be the stream of the weights its version names (the reference
+    # engine holds the seed-0 weights, step 1's, until it loads w1)
+    a_version = [results[f"a{i}"][0]["version"] for i in range(len(jobs_a))]
+    check(set(a_version) <= {1, 2}, f"[serve_http]: versions {a_version}")
+
+    def held_to(version, tag):
+        idx = [i for i, v in enumerate(a_version) if v == version]
+        want = serve_tokens(ref, [jobs_a[i] for i in idx], tag)
+        for i, toks in zip(idx, want):
+            check(results[f"a{i}"][0]["tokens"] == toks,
+                  f"[serve_http]: a{i} is not the stream of version "
+                  f"{version}'s weights")
+
+    held_to(1, "ra1")
+    ref.load_params(w1)
+    held_to(2, "ra2")
+    for tag, jobs in (("b", jobs_b), ("c", jobs_c)):
+        want = serve_tokens(ref, jobs, f"r{tag}")
+        for i in range(len(jobs)):
+            doc = results[f"{tag}{i}"][0]
+            check(doc["version"] == 2 and doc["tokens"] == want[i],
+                  f"[serve_http]: {tag}{i} after the swap is not the new "
+                  f"weights' stream (version {doc['version']})")
+    ref.load_params(w0)
+    # the request-level path of the demo model rides along
+    inf = ReplicaServer(dim=16, device=dev, replica_id="i0").start()
+    try:
+        body = json.dumps({"id": "x0", "x": [float(i) for i in range(16)]})
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{inf.port}/infer", data=body.encode(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            doc = json.loads(r.read())
+    finally:
+        inf.stop()
+    infer_err = max(abs(y - 7.5) for y in doc["y"])
+    check(infer_err < 1e-5 and doc["version"] == 0,
+          f"[serve_http]: /infer gave {doc}")
+    ttft_b = sorted(results[f"b{i}"][0]["ttft_s"]
+                    for i in range(len(jobs_b)))
+    say("serve_http", requests=n_sent, duplicate_ids=2,
+        swapped_to=2, swap_seen_s=swap_s, drained=True,
+        first_wave_versions=",".join(f"{v}:{a_version.count(v)}"
+                                     for v in (1, 2)),
+        accounting=json.dumps(acct["outcomes"], sort_keys=True),
+        after_swap_equal=len(jobs_b) + len(jobs_c),
+        ttft_p50_ms_after_swap=1e3 * ttft_b[len(ttft_b) // 2],
+        infer_max_abs_err=infer_err, phase_s=time.perf_counter() - t_phase,
+        card=card)
+
+
+def phase_serve_fleet(torch, dev, card, served: dict) -> None:
+    """[serve_fleet]: a ``ReplicaFleet`` of two generate-mode replica
+    processes on the one card (the flagship, seed-0 weights, 32 slots,
+    chunk 32) behind a ``Router``: SERVE_FLEET requests, one replica
+    SIGKILLed mid-run. Zero failed requests, every stream equal to the
+    same geometry's in this process, the exit classified a failure, and
+    the fleet healed back to two."""
+    import threading
+
+    from horovod_tpu_torch.serving import ReplicaFleet, Router
+    t_phase = time.perf_counter()
+    ref, cfg = served["engine"], served["cfg"]
+    jobs = serve_requests(SERVE_FLEET, 6, cfg.vocab_size)
+    want = serve_tokens(ref, jobs, "rf")
+    fleet = ReplicaFleet(size=2, mode="generate", device=str(dev),
+                         poll_s=0.1,
+                         extra_args=["--flagship", "--slots",
+                                     str(SERVE_SLOTS), "--prefill-chunk",
+                                     str(SERVE_CHUNK)])
+    router = None
+    results, errors = {}, []
+    try:
+        t0 = time.perf_counter()
+        fleet.start(ready_timeout_s=SERVE_TIMEOUT_S)
+        ready_s = time.perf_counter() - t0
+        router = Router(fleet.endpoints, max_attempts=8, hedge_ms=0,
+                        attempt_timeout_s=SERVE_TIMEOUT_S,
+                        default_deadline_s=SERVE_TIMEOUT_S)
+
+        def fire(i):
+            try:
+                results[i] = router.submit_generate(
+                    jobs[i][0], max_new=jobs[i][1], req_id=f"q{i}")
+            except Exception as e:
+                errors.append(f"q{i}: {e!r}")
+
+        threads = [threading.Thread(target=fire, args=(i,), daemon=True)
+                   for i in range(SERVE_FLEET)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        victim = fleet._replicas[1]
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+        check(not any(t.is_alive() for t in threads),
+              "[serve_fleet]: a request never returned")
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while time.monotonic() < deadline and not (
+                fleet.live_count() == 2
+                and any(e["outcome"] == "failure" for e in fleet.exits)):
+            time.sleep(0.1)
+        heal_s = time.perf_counter() - t_kill
+        live = fleet.live_count()
+        acct = router.accounting()
+        exits = list(fleet.exits)
+    finally:
+        if router is not None:
+            router.close()
+        fleet.stop()
+    check(not errors, f"[serve_fleet]: failed requests {errors[:3]}")
+    check(live == 2, f"[serve_fleet]: the fleet healed to {live}")
+    kills = [e for e in exits if e["outcome"] == "failure"]
+    check(len(kills) == 1 and kills[0]["rc"] == -signal.SIGKILL,
+          f"[serve_fleet]: exits {[(e['rc'], e['outcome']) for e in exits]}")
+    check(acct["accepted"] == acct["answered_ok"] == SERVE_FLEET
+          and not acct["unanswered"] and not acct["answered_twice"]
+          and acct["outcomes"].get("failed", 0) == 0,
+          f"[serve_fleet]: the books {acct}")
+    check(all(results[i]["tokens"] == want[i] for i in range(SERVE_FLEET)),
+          "[serve_fleet]: a stream differs from this process's engine")
+    say("serve_fleet", replicas=2, requests=SERVE_FLEET,
+        accounting=json.dumps(acct["outcomes"], sort_keys=True),
+        killed_rc=kills[0]["rc"], ready_s=ready_s, healed_s=heal_s,
+        streams_equal=SERVE_FLEET, phase_s=time.perf_counter() - t_phase,
+        card=card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3534,10 +4117,41 @@ def main() -> int:
     phase_zoo_dp(torch, dev, card)
     phase_bert_tp(torch, dev, card)
 
+    # -- the serving plane: the flagship decoded by the continuous engine
+    # (one CUDA graph capture per step function), a replica behind the
+    # router through duplicates, a hot swap and a drain, and a fleet of
+    # two replica processes that loses one. None of the eight kernels is
+    # on this path (the decode math is plain fp32 torch, as the JAX
+    # package's is XLA code): each in-process phase counts their launches
+    # from 0 and must read 0 (the fleet's replicas are other processes
+    # running the same engine)
+    every = {"flash_attention_fwd": counters[0], "xent_fwd": counters[1],
+             **quant}
+    serve_launches = {}
+
+    def serve_phase(name, fn, *args):
+        for c in every.values():
+            c.launches = 0
+        out = fn(torch, dev, card, *args)
+        serve_launches[name] = {k: c.launches for k, c in every.items()}
+        return out
+
+    served = serve_phase("serve_generate", phase_serve_generate)
+    serve_phase("serve_http", phase_serve_http, served)
+    phase_serve_fleet(torch, dev, card, served)
+    del served
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k["serve_launches"] = {ph: got[k["name"]]
+                               for ph, got in serve_launches.items()}
+    check(all(n == 0 for got in serve_launches.values()
+              for n in got.values()),
+          f"a kernel ran on the serving path: {serve_launches}")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
-            "pp_launches", "ckpt_launches")
+            "pp_launches", "ckpt_launches", "serve_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,10 @@ returns the registry all of it writes to. A run saves asynchronously and
 resumes through ``ShardedCheckpointer`` (the JAX package's on-disk format,
 read both ways) and ``callbacks.CheckpointCallback``, with its data
 position from ``data.ShardedDataset``'s cursor; ``ReplicaCanary`` and
-``param_digest`` compare the replicas.
+``param_digest`` compare the replicas. ``serving`` serves the weights:
+a continuous-batching decode engine over a paged KV pool (each step
+function captured once in a CUDA graph), replicas with hot swap from the
+checkpoint store, a hedging router and a healing fleet.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401

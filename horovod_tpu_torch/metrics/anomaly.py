@@ -1,6 +1,7 @@
 """Online anomaly engine: EWMA+MAD detectors over the step time-series.
 
-A copy of the training detectors of ``horovod_tpu/metrics/anomaly.py``.
+A copy of the training and serving detectors of
+``horovod_tpu/metrics/anomaly.py``.
 The live metrics answer *is the job healthy now*; this layer answers
 **was it degrading before anyone noticed?**  Four detectors run over the
 points the train loop records:
@@ -15,12 +16,24 @@ points the train loop records:
   ledger window, :mod:`horovod_tpu_torch.metrics.goodput`); the finding
   names the dominating loss category.
 
+Three serving detectors ride the request ledger's closed windows
+(:mod:`horovod_tpu_torch.serving.ledger`, fed once per ``LatencyWindow``
+roll via :func:`observe_serving_window`):
+
+* ``ttft_drift`` — windowed time-to-first-token p50 drifts above its
+  rolling baseline (generate traffic only);
+* ``queue_growth`` — the queueing stages (``queue`` + ``batch_wait``)
+  take over the request wall-clock: their windowed stage share stays
+  over ``HVD_TPU_SERVING_QUEUE_SHARE`` — the scale-out-shaped signal;
+* ``kv_thrash`` — the ``page_wait`` stage share stays over
+  ``HVD_TPU_SERVING_KV_THRASH_SHARE``: sequences starve for KV pages,
+  which more replicas will NOT fix.
+
 External detectors (the ``hbm_growth`` sampler of
 :mod:`horovod_tpu_torch.profiling.memory`, the ``recompile_storm`` watch)
 report through :func:`report_finding`. The JAX engine's
-``persistent_straggler`` detector is fed by the fleet aggregator and its
-serving detectors (``ttft_drift``, ``queue_growth``, ``kv_thrash``) by the
-serving ledger; they arrive with the port's fleet and serving slices.
+``persistent_straggler`` detector is fed by the fleet aggregator; it
+arrives with the port's fleet aggregator (ROADMAP queue 1 item 5).
 
 Every finding lands three ways: a ``hvd_anomaly_total{kind=...}``
 counter, an ``anomaly`` flight-recorder event, and the engine's bounded
@@ -150,9 +163,53 @@ class _DriftDetector:
                 "consecutive": self._streak}
 
 
+class _StageShareDetector:
+    """Threshold detector over one windowed stage-share signal from the
+    serving request ledger: flags after ``windows`` consecutive closed
+    windows where the summed share of ``stages`` exceeds ``threshold``,
+    with the same one-finding-per-episode hysteresis as the drift
+    detectors.  An idle window (no requests) resets the episode — the
+    condition did not survive the traffic that caused it."""
+
+    def __init__(self, kind: str, stages: tuple, threshold: float,
+                 windows: int) -> None:
+        self.kind = kind
+        self.stages = stages
+        self.threshold = threshold
+        self.windows = max(1, windows)
+        self._streak = 0
+        self._active = False
+
+    def observe(self, doc: dict) -> Optional[dict]:
+        if not doc.get("requests"):
+            self._streak = 0
+            self._active = False
+            return None
+        shares = doc.get("stage_shares") or {}
+        share = sum(shares.get(s, 0.0) for s in self.stages)
+        if share <= self.threshold:
+            self._streak = 0
+            self._active = False
+            return None
+        self._streak += 1
+        if self._active or self._streak < self.windows:
+            return None
+        self._active = True
+        worst = max(self.stages, key=lambda s: shares.get(s, 0.0))
+        finding = {"kind": self.kind, "value": round(share, 4),
+                   "threshold": self.threshold,
+                   "dominant_stage": worst,
+                   "stage_share": round(shares.get(worst, 0.0), 4),
+                   "consecutive": self._streak}
+        if doc.get("worst_trace"):
+            finding["worst_trace"] = doc["worst_trace"]
+        return finding
+
+
 class AnomalyEngine:
     """Per-process detector bank; feed it from the train loop
-    (``observe_step``) and the goodput ledger (``observe_goodput``).
+    (``observe_step``), the goodput ledger (``observe_goodput``) and the
+    serving plane's closed windows (``observe_serving``).
     Thread-safe; every call is O(1)."""
 
     def __init__(self, registry: Optional[Registry] = None) -> None:
@@ -179,6 +236,19 @@ class AnomalyEngine:
         self._goodput = _DriftDetector(
             "goodput_regression", -1, alpha, k, min_ratio, consecutive,
             warmup)
+        # serving-plane detectors (fed per closed LatencyWindow by
+        # observe_serving): TTFT drifts like step time; the stage-share
+        # pair are threshold detectors — a share is already normalized,
+        # a learned baseline would only blunt the "where" answer
+        self._ttft = _DriftDetector(
+            "ttft_drift", +1, alpha, k, min_ratio, consecutive, warmup)
+        share_windows = max(1, _envi("SERVING_STAGE_WINDOWS", 2))
+        self._queue_share = _StageShareDetector(
+            "queue_growth", ("queue", "batch_wait"),
+            _envf("SERVING_QUEUE_SHARE", 0.5), share_windows)
+        self._kv_share = _StageShareDetector(
+            "kv_thrash", ("page_wait",),
+            _envf("SERVING_KV_THRASH_SHARE", 0.25), share_windows)
         self.findings: List[dict] = []
 
     # -- feeds ---------------------------------------------------------------
@@ -217,6 +287,26 @@ class AnomalyEngine:
             if dominating:
                 f["category"] = dominating
             return [self._flag(f)]
+
+    def observe_serving(self, doc: dict) -> List[dict]:
+        """One closed serving ``LatencyWindow`` doc (carrying the
+        request ledger's stage shares): runs the ``ttft_drift`` /
+        ``queue_growth`` / ``kv_thrash`` detectors and returns any NEW
+        findings."""
+        out = []
+        with self._lock:
+            ttft = doc.get("ttft_p50_s")
+            if ttft is not None and doc.get("requests"):
+                f = self._ttft.observe(float(ttft))
+                if f:
+                    if doc.get("worst_trace"):
+                        f["worst_trace"] = doc["worst_trace"]
+                    out.append(self._flag(f))
+            for det in (self._queue_share, self._kv_share):
+                f = det.observe(doc)
+                if f:
+                    out.append(self._flag(f))
+        return out
 
     # -- reporting -----------------------------------------------------------
     def report(self, kind: str, **fields: Any) -> dict:
@@ -282,7 +372,7 @@ class AnomalyEngine:
             pass
         # The JAX engine offers every finding to the autopilot here
         # (autopilot.on_finding). The port has no autopilot yet (ROADMAP
-        # queue 1, item 11): findings are counted, recorded and logged,
+        # queue 1, item 7): findings are counted, recorded and logged,
         # and nothing acts on them.
         try:
             from horovod_tpu_torch.common.logging import get_logger
@@ -304,8 +394,11 @@ class AnomalyEngine:
         alpha = self._step.baseline.alpha
         with self._lock:
             for det in (self._step, self._thr, self._exposed,
-                        self._goodput):
+                        self._goodput, self._ttft):
                 det.baseline = EwmaMad(alpha)
+                det._streak = 0
+                det._active = False
+            for det in (self._queue_share, self._kv_share):
                 det._streak = 0
                 det._active = False
 
@@ -331,6 +424,13 @@ def recent_findings() -> List[dict]:
     """Findings so far (empty when the engine never ran)."""
     eng = _ENGINE
     return eng.recent_findings() if eng is not None else []
+
+
+def observe_serving_window(doc: dict) -> List[dict]:
+    """Feed one closed serving window doc to the process-wide engine's
+    serving detectors ([] when ``HVD_TPU_ANOMALY=0``)."""
+    eng = default_engine()
+    return eng.observe_serving(doc) if eng is not None else []
 
 
 def report_finding(kind: str, **fields: Any) -> Optional[dict]:

@@ -3,15 +3,20 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
     adamw,
     data_sharding_spec,
+    decode_step_paged,
+    flatten_decode_params,
     forward_loss_spmd,
     from_jax_params,
     init_opt_state,
     init_params,
+    kv_cache_spec,
     lm_loss,
     make_forward,
     make_grad_fn,
     make_train_step,
     param_shardings,
+    prefill_chunk_paged,
+    reference_greedy_decode,
     shard_params,
     shard_state_dict,
 )

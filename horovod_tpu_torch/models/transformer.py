@@ -616,3 +616,246 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
         return model, optimizer, loss.detach(), aux.detach()
 
     return multi_step(one_step, n_carry=2, scan_steps=scan_steps)
+
+
+# ---------------------------------------------------------------------------
+# Generative decode: KV-cache forward over the serving engine's paged pool
+# ---------------------------------------------------------------------------
+# The serving engine (horovod_tpu_torch/serving/generate/) runs the weights
+# the training step produced at token granularity: one fixed-shape decode
+# step over a static slot array, K/V history in block-granular pages. All
+# of it is single-device fp32 math in plain torch, as the JAX package's
+# (``horovod_tpu/models/transformer.py:482-684``, XLA code, no Pallas
+# kernel): greedy decode is held bit for bit across batching and paging.
+# Layout:
+#
+#   k_pages / v_pages  [L, total_pages + 1, page_tokens, H*Dh]
+#       (+1 = the scratch page that inactive and padded lanes write into,
+#       so membership churn never changes a shape)
+#   page_table         [slots, pages_per_slot] — a slot's j-th page holds
+#       its token positions [j*page_tokens, (j+1)*page_tokens); gathered
+#       back, position p of a slot lands at flat index p.
+#
+# Every function here runs without a host synchronization and with shapes
+# fixed by its inputs, so the engine can capture it once in a CUDA graph:
+# the pools are written in place (``index_put_``), index tensors are
+# device tensors (``pos0``/``valid`` 0-d), and lookups are
+# ``index_select``s.
+
+def kv_cache_spec(cfg: TransformerConfig) -> Tuple[int, int, torch.dtype]:
+    """(n_layers, per-token K width, cache dtype): the model fingerprint
+    the page planner sizes pages from."""
+    return cfg.n_layers, cfg.n_heads * cfg.head_dim, torch.float32
+
+
+def flatten_decode_params(params) -> Dict:
+    """``{"embed", "ln_f", "layers": {name: [L, ...]}}`` from a
+    :class:`Transformer`, its ``state_dict`` (``layers.wq`` keys) or a
+    nested parameter tree (numpy or torch): the stacked-stage layout
+    ``[pp, L/pp, ...]`` collapsed to ``[L, ...]`` (decode runs every layer
+    on one device). Leaves stay where they are; numpy leaves become CPU
+    tensors. Refuses MoE, as the JAX function does."""
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    flat = flatten_dotted(params)
+    layers = {k[len("layers."):]: v for k, v in flat.items()
+              if k.startswith("layers.")}
+    if "w1" not in layers:
+        raise NotImplementedError(
+            "paged decode supports dense-FFN transformers (n_experts=0)")
+
+    def t(v):
+        return v.detach() if isinstance(v, torch.Tensor) \
+            else torch.from_numpy(np.array(v))
+
+    return {"embed": t(flat["embed"]), "ln_f": t(flat["ln_f"]),
+            "layers": {k: t(v).reshape((-1,) + tuple(v.shape[2:]))
+                       for k, v in layers.items()}}
+
+
+def _rope_rows(x, pos):
+    """Rotary embedding at per-row positions: x [N, H, D], pos [N] — the
+    decode-time counterpart of :func:`_rope` (one token a row, each at its
+    own absolute position)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (10000 ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = pos[:, None].float() * freqs[None, :]                # [N, half]
+    cos = torch.cos(ang)[:, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+def _paged_layer(lp, x, q_pos, kv_pages, dest_page, offs, gather_rows,
+                 key_mask, cfg: TransformerConfig):
+    """One block over paged KV: write this call's K/V into the layer's
+    pool pages (in place), gather the history back, attend, FFN.
+
+    x [N, M] (N = slots for decode, chunk for prefill); ``dest_page``/
+    ``offs`` [N] address each row's write; ``gather_rows`` indexes the
+    pages to read back ([N, P] per row for decode, [P] shared for
+    prefill); ``key_mask`` [N, T] marks the attended positions. Returns
+    the block's output; the pools ``kv_pages`` (one layer's
+    ``[total_pages + 1, page_tokens, H*Dh]``) are updated in place."""
+    kp, vp = kv_pages
+    H, Dh = cfg.n_heads, cfg.head_dim
+    N = x.shape[0]
+    h = _rmsnorm(x, lp["ln1"].float())
+    q = _rope_rows((h @ lp["wq"].float()).reshape(N, H, Dh), q_pos)
+    k = _rope_rows((h @ lp["wk"].float()).reshape(N, H, Dh), q_pos)
+    v = h @ lp["wv"].float()
+    kp.index_put_((dest_page, offs), k.reshape(N, H * Dh))
+    vp.index_put_((dest_page, offs), v)
+    k_all = kp[gather_rows].reshape(gather_rows.shape[:-1] + (-1, H, Dh))
+    v_all = vp[gather_rows].reshape(gather_rows.shape[:-1] + (-1, H, Dh))
+    if k_all.dim() == 3:          # shared gather (prefill): [T, H, Dh]
+        scores = torch.einsum("nhd,thd->nht", q, k_all)
+    else:                         # per-row gather (decode): [N, T, H, Dh]
+        scores = torch.einsum("nhd,nthd->nht", q, k_all)
+    # Python scalars: a device tensor made from a host number would be a
+    # host-to-device copy, which a CUDA graph capture refuses
+    scores = scores / float(np.sqrt(Dh).astype(np.float32))
+    scores = torch.where(key_mask[:, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    if k_all.dim() == 3:
+        o = torch.einsum("nht,thd->nhd", probs, v_all)
+    else:
+        o = torch.einsum("nht,nthd->nhd", probs, v_all)
+    x = x + o.reshape(N, H * Dh) @ lp["wo"].float()
+    h2 = _rmsnorm(x, lp["ln2"].float())
+    f = F.gelu(h2 @ lp["w1"].float(), approximate="tanh")
+    return x + f @ lp["w2"].float()
+
+
+def _layer(params: Dict, li: int) -> Dict:
+    return {k: v[li] for k, v in params["layers"].items()}
+
+
+def decode_step_paged(params: Dict, k_pages, v_pages, page_table, lengths,
+                      last_token, active, cfg: TransformerConfig):
+    """ONE decode step for every slot at once: the function the engine
+    captures once, whatever joins or leaves between calls.
+
+    ``params`` as :func:`flatten_decode_params` gives them; page_table
+    [S, P], lengths/last_token [S] (integer), active [S] bool. Each active
+    slot embeds its last token, appends its K/V at position
+    ``lengths[s]``, attends over its own gathered history, and emits the
+    greedy next token. Inactive slots compute masked garbage into the
+    scratch page: their lanes exist only to keep the shapes constant.
+    Returns ``(next_token [S] int32, k_pages, v_pages)``, the pools
+    updated in place."""
+    pt = k_pages.shape[2]
+    scratch = k_pages.shape[1] - 1
+    page_table = page_table.long()
+    lengths = lengths.long()
+    emb = params["embed"].float()
+    x = emb.index_select(0, last_token.long())               # [S, M]
+    page_idx = torch.clamp(lengths // pt, 0, page_table.shape[1] - 1)
+    dest = torch.gather(page_table, 1, page_idx[:, None])[:, 0]
+    dest = torch.where(active, dest, torch.full_like(dest, scratch))
+    offs = lengths % pt
+    T = page_table.shape[1] * pt
+    key_mask = (torch.arange(T, device=lengths.device)[None, :]
+                <= lengths[:, None])                          # incl. new token
+    for li in range(k_pages.shape[0]):
+        x = _paged_layer(_layer(params, li), x, lengths,
+                         (k_pages[li], v_pages[li]), dest, offs, page_table,
+                         key_mask, cfg)
+    x = _rmsnorm(x, params["ln_f"].float())
+    logits = x @ emb.T                                        # [S, V]
+    return torch.argmax(logits, dim=-1).to(torch.int32), k_pages, v_pages
+
+
+def prefill_chunk_paged(params: Dict, k_pages, v_pages, page_row, tokens,
+                        pos0, valid, cfg: TransformerConfig):
+    """Prefill ONE ``chunk``-token slice of ONE slot's prompt (a fixed
+    chunk shape: the last chunk arrives padded, ``valid`` counting its
+    real tokens). Writes the chunk's K/V into the slot's pages and returns
+    the greedy next token after the last VALID position — the first
+    generated token once the final chunk lands. ``pos0`` and ``valid`` are
+    integers or 0-d tensors. Returns ``(next_token 0-d int32, k_pages,
+    v_pages)``, the pools updated in place."""
+    C = tokens.shape[0]
+    pt = k_pages.shape[2]
+    scratch = k_pages.shape[1] - 1
+    dev = tokens.device
+    page_row = page_row.long()
+    pos0 = torch.as_tensor(pos0, device=dev).long()
+    valid = torch.as_tensor(valid, device=dev).long()
+    emb = params["embed"].float()
+    x = emb.index_select(0, tokens.long())                    # [C, M]
+    ar = torch.arange(C, device=dev)
+    pos = pos0 + ar
+    live = ar < valid
+    dest = page_row.index_select(
+        0, torch.clamp(pos // pt, 0, page_row.shape[0] - 1))
+    dest = torch.where(live, dest, torch.full_like(dest, scratch))
+    offs = pos % pt
+    T = page_row.shape[0] * pt
+    # causal within the chunk AND over every earlier chunk's positions
+    key_mask = torch.arange(T, device=dev)[None, :] <= pos[:, None]
+    for li in range(k_pages.shape[0]):
+        x = _paged_layer(_layer(params, li), x, pos,
+                         (k_pages[li], v_pages[li]), dest, offs, page_row,
+                         key_mask, cfg)
+    x = _rmsnorm(x, params["ln_f"].float())
+    x_last = x.index_select(0, torch.clamp(valid - 1, 0, C - 1).reshape(1))
+    logits = x_last[0] @ emb.T                                # [V]
+    return torch.argmax(logits).to(torch.int32), k_pages, v_pages
+
+
+@torch.no_grad()
+def reference_greedy_decode(params, cfg: TransformerConfig, prompt,
+                            max_new: int, device=None,
+                            return_margins: bool = False):
+    """Sequential non-paged oracle: recompute full-history attention for
+    every emitted token (no cache, no paging, no batching). Slow on
+    purpose: the ground truth the paged continuous engine must match token
+    for token. ``params`` as :func:`flatten_decode_params` takes them; the
+    math runs on ``device`` (default: where the weights are).
+
+    ``return_margins=True`` returns ``(tokens, margins)`` with one
+    ``(top1 - top2 logit, max |logit|)`` pair a step: where the margin is
+    a rounding's width, another summation order may pick the other token
+    (a near tie)."""
+    flat = flatten_decode_params(params)
+    dev = torch.device(device) if device is not None \
+        else flat["embed"].device
+    flat = {"embed": flat["embed"].to(dev), "ln_f": flat["ln_f"].to(dev),
+            "layers": {k: v.to(dev) for k, v in flat["layers"].items()}}
+    H, Dh, L = cfg.n_heads, cfg.head_dim, cfg.n_layers
+    toks = [int(t) for t in np.asarray(prompt).reshape(-1)]
+    out, margins = [], []
+    emb = flat["embed"].float()
+    scale = float(np.sqrt(Dh).astype(np.float32))
+    for _ in range(int(max_new)):
+        ids = torch.tensor(toks, dtype=torch.long, device=dev)
+        Tn = ids.shape[0]
+        x = emb.index_select(0, ids)
+        pos = torch.arange(Tn, device=dev)
+        for li in range(L):
+            lp = _layer(flat, li)
+            h = _rmsnorm(x, lp["ln1"].float())
+            q = _rope_rows((h @ lp["wq"].float()).reshape(Tn, H, Dh), pos)
+            k = _rope_rows((h @ lp["wk"].float()).reshape(Tn, H, Dh), pos)
+            v = (h @ lp["wv"].float()).reshape(Tn, H, Dh)
+            scores = torch.einsum("qhd,khd->hqk", q, k) / scale
+            mask = pos[None, :] <= pos[:, None]
+            scores = torch.where(mask[None, :, :], scores, -1e30)
+            probs = torch.softmax(scores, dim=-1)
+            o = torch.einsum("hqk,khd->qhd", probs, v).reshape(Tn, H * Dh)
+            x = x + o @ lp["wo"].float()
+            h2 = _rmsnorm(x, lp["ln2"].float())
+            f = F.gelu(h2 @ lp["w1"].float(), approximate="tanh")
+            x = x + f @ lp["w2"].float()
+        x = _rmsnorm(x, flat["ln_f"].float())
+        logits = x[-1] @ emb.T
+        nxt = int(torch.argmax(logits))
+        if return_margins:
+            top = torch.topk(logits, 2).values
+            margins.append((float(top[0] - top[1]),
+                            float(logits.abs().max())))
+        out.append(nxt)
+        toks.append(nxt)
+    return (out, margins) if return_margins else out

@@ -18,6 +18,13 @@ build is recorded under the JAX package's metric names:
 parallel, so it adds the batch's wall time once, not the sum of the
 per-library times.
 
+The serving engine's CUDA graph captures are the port's other compiles
+(the JAX engine jits its two step functions; the port captures each once,
+:mod:`horovod_tpu_torch.serving.generate.engine`): :func:`note_capture`
+records one under the JAX function's name (``gen_decode_step``,
+``gen_prefill_chunk``), so :func:`per_function_compiles` counts captures
+per step function as the JAX package counts compiles per jitted function.
+
 The JAX package's ``jax.monitoring`` and ``jax_log_compiles`` sources have
 no counterpart here, and neither has its ``recompile_storm`` detector: a
 library's hash names its source, so a process builds each library at
@@ -69,15 +76,40 @@ def note_build(seconds: Dict[str, float], wall_s: float) -> None:
         reg = default_registry()
         for name, s in seconds.items():
             reg.counter("hvd_compile_total",
-                        help="kernel library builds (nvcc)").inc()
+                        help="kernel library builds (nvcc) and CUDA graph "
+                             "captures").inc()
             reg.counter(
                 "hvd_compile_cache_miss_total",
                 help="kernel libraries missing from the build directory "
                      "(each one is built)").inc()
             reg.histogram(
                 "hvd_compile_seconds",
-                help="kernel library build time per build",
+                help="kernel library build (or graph capture) time",
                 labels={"function": _function_label(name)}).observe(s)
+    except Exception:
+        pass
+
+
+def note_capture(name: str, seconds: float) -> None:
+    """One CUDA graph capture of the step function ``name`` (warm-up
+    included in ``seconds``), counted as a compile of that function.
+    Never raises."""
+    if not enabled():
+        return
+    with _LOCK:
+        _builds[name] = _builds.get(name, 0) + 1
+        _totals["compiles"] += 1
+        _totals["seconds_total"] += float(seconds)
+    try:
+        from horovod_tpu_torch.metrics.registry import default_registry
+        reg = default_registry()
+        reg.counter("hvd_compile_total",
+                    help="kernel library builds (nvcc) and CUDA graph "
+                         "captures").inc()
+        reg.histogram(
+            "hvd_compile_seconds",
+            help="kernel library build (or graph capture) time",
+            labels={"function": _function_label(name)}).observe(seconds)
     except Exception:
         pass
 
@@ -90,7 +122,7 @@ def totals() -> dict:
 
 
 def per_function_compiles() -> Dict[str, int]:
-    """Builds per library."""
+    """Builds per library and CUDA graph captures per step function."""
     with _LOCK:
         return dict(_builds)
 

@@ -10,9 +10,8 @@ recorder stamps into every event it records, spans counted as
 
 The JAX package also carries the context across processes: as a
 ``traceparent`` HTTP header on KV and serving hops and as a field of KV
-documents (``from_doc``). Those carriers arrive with the port's runner and
-serving slices; the wire format (:func:`encode`/:func:`decode`) is here
-already.
+documents (``from_doc``). The serving hops (router → replica) carry it
+since the port's serving slice; the KV carriers arrive with the runner.
 
 Knobs: ``HVD_TPU_TRACE`` (default on) kills every context source when
 0; ``HVD_TPU_TRACE_SAMPLE`` (default 1.0) samples new ROOT traces by
@@ -182,6 +181,11 @@ def activate(ctx: Optional[TraceContext]) -> Iterator[
         yield ctx
     finally:
         set_current(prev)
+
+
+def fields(ctx: Optional[TraceContext]) -> Dict[str, str]:
+    """``ctx``'s stamp for a log line, or ``{}`` without a context."""
+    return ctx.fields() if ctx is not None else {}
 
 
 def record_span(plane: str, name: str, ctx: Optional[TraceContext],

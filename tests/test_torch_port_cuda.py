@@ -11,6 +11,7 @@ conftest left out:
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -763,3 +764,110 @@ if __name__ == "__main__":
     from torch_port_worker import worker_main
     sys.exit(worker_main({"ring": _w_ring, "pp_nccl": _w_pp_nccl},
                          sys.argv[1:]))
+
+
+# -- the serving engine: one CUDA graph capture per step function --------------
+GEN_TIE_REL = 1e-4   # a near tie: top-two logit margin under this x max|logit|
+
+
+def _gen_done(engine, reqs):
+    from horovod_tpu_torch.serving.generate.scheduler import DONE
+    n = 0
+    while any(r.state != DONE for r in reqs):
+        engine.step_once()
+        n += 1
+        assert n < 100_000
+
+
+def _churned(engine, n_reqs, seed, vocab, steps):
+    """Submit ``n_reqs`` mixed requests and step until some have finished,
+    some decode and some wait or prefill: a churned slot state."""
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n_reqs):
+        plen = int(rng.randint(1, 40))
+        reqs.append(engine.submit(f"c{i}", rng.randint(0, vocab, plen),
+                                  int(rng.randint(1, 12))))
+    for _ in range(steps):
+        engine.step_once()
+    return reqs
+
+
+def test_gen_step_functions_capture_once_under_churn(dev):
+    """Sequences joining and leaving every few steps change only buffer
+    contents: each step function is captured exactly once, and every
+    stream equals the card's oracle up to its first near tie."""
+    from horovod_tpu_torch.models import reference_greedy_decode
+    from horovod_tpu_torch.profiling import compile_watch
+    from horovod_tpu_torch.serving.generate import (GenerateEngine,
+                                                    demo_gen_setup)
+    params, cfg = demo_gen_setup(d_model=64, n_heads=4, vocab=256,
+                                 max_seq=128, device=dev)
+    compile_watch.reset_counts()
+    eng = GenerateEngine(params, cfg, n_slots=3, page_bytes=4096,
+                         prefill_chunk=8, device=dev)
+    reqs = _churned(eng, 12, 0, cfg.vocab_size, 0)
+    _gen_done(eng, reqs)
+    counts = compile_watch.per_function_compiles()
+    assert counts.get("gen_decode_step") == 1, counts
+    assert counts.get("gen_prefill_chunk") == 1, counts
+    assert eng.captures == {"gen_decode_step": 1, "gen_prefill_chunk": 1}
+    for r in reqs[:4]:
+        ref, margins = reference_greedy_decode(
+            params, cfg, r.prompt, r.max_new, return_margins=True)
+        tie = next((i for i, (m, mx) in enumerate(margins)
+                    if m < GEN_TIE_REL * mx), len(ref))
+        assert r.tokens[:tie] == ref[:tie], (r.id, tie)
+
+
+def test_replayed_decode_step_equals_eager_bit_for_bit(dev):
+    """On a churned slot state the graph replay gives the eager step's
+    tokens and pools to the bit (the scratch page aside: masked lanes
+    write it in no fixed order)."""
+    from horovod_tpu_torch.serving.generate import (GenerateEngine,
+                                                    demo_gen_setup)
+    params, cfg = demo_gen_setup(d_model=64, n_heads=4, vocab=256,
+                                 max_seq=128, device=dev)
+    eng = GenerateEngine(params, cfg, n_slots=4, page_bytes=4096,
+                         prefill_chunk=8, device=dev)
+    reqs = _churned(eng, 10, 1, cfg.vocab_size, 14)
+    assert 0 < len(eng.scheduler.decoding()) and any(
+        r.state == "done" for r in reqs)
+    k0, v0 = eng._k_pages.clone(), eng._v_pages.clone()
+    replayed = eng.decode_step_now()
+    k1, v1 = eng._k_pages.clone(), eng._v_pages.clone()
+    eng._k_pages.copy_(k0)
+    eng._v_pages.copy_(v0)
+    eager = eng.decode_step_now(eager=True)
+    np.testing.assert_array_equal(replayed, eager)
+    assert torch.equal(k1[:, :-1], eng._k_pages[:, :-1])
+    assert torch.equal(v1[:, :-1], eng._v_pages[:, :-1])
+    assert not torch.equal(k1[:, :-1], k0[:, :-1])   # the step wrote K
+    _gen_done(eng, reqs)
+
+
+def test_flagship_engine_matches_card_oracle(dev):
+    """The flagship at full width (fp32, 8 slots): continuous tokens
+    equal the card's ``reference_greedy_decode`` up to the first near
+    tie, and a lone rerun of each request equals its continuous run."""
+    from horovod_tpu_torch.models import reference_greedy_decode
+    from horovod_tpu_torch.serving.generate import (GenerateEngine,
+                                                    flagship_gen_setup)
+    params, cfg = flagship_gen_setup(device=dev)
+    eng = GenerateEngine(params, cfg, n_slots=8, prefill_chunk=32,
+                         device=dev)
+    assert (eng.plan.page_tokens, eng.plan.pages_per_slot) == (4, 64)
+    rng = np.random.RandomState(2)
+    jobs = [(rng.randint(0, cfg.vocab_size, int(rng.randint(8, 120))),
+             int(rng.randint(8, 24))) for _ in range(6)]
+    reqs = [eng.submit(f"f{i}", p, m) for i, (p, m) in enumerate(jobs)]
+    _gen_done(eng, reqs)
+    for i, r in enumerate(reqs[:4]):
+        ref, margins = reference_greedy_decode(
+            params, cfg, r.prompt, r.max_new, return_margins=True)
+        tie = next((j for j, (m, mx) in enumerate(margins)
+                    if m < GEN_TIE_REL * mx), len(ref))
+        assert r.tokens[:tie] == ref[:tie], (i, tie)
+        lone = eng.submit(f"l{i}", r.prompt, r.max_new)
+        _gen_done(eng, [lone])
+        assert lone.tokens == r.tokens

@@ -34,7 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 150
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_port_worker import log_time, spawn_world  # noqa: E402
+from torch_port_worker import leave, log_time, spawn_world  # noqa: E402
 
 if __name__ != "__main__":
     import functools
@@ -638,8 +638,7 @@ def _worker_main(argv) -> int:
     assert not [m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "horovod_tpu")], "a worker imported JAX"
     np.savez(os.path.join(args.out, f"{args.worker}.rank{rank}.npz"), **res)
-    hvd.shutdown()
-    return 0
+    leave(hvd)
 
 
 if __name__ == "__main__":

@@ -326,3 +326,59 @@ def test_bert_without_device_raises_without_cuda(no_cuda):
     from horovod_tpu_torch.models import bert
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bert.Bert(bert.bert_base())
+
+
+def test_serving_modules_import_and_export():
+    """The serving slice: the JAX ``serving/__init__`` names (less the
+    rollout ones), the decode math, the copied HTTP server and reader;
+    none of it pulls JAX (the walk above imports every module)."""
+    import horovod_tpu_torch.serving as serving
+    from horovod_tpu_torch.models import (decode_step_paged,  # noqa: F401
+                                          flatten_decode_params,
+                                          kv_cache_spec,
+                                          prefill_chunk_paged,
+                                          reference_greedy_decode)
+    from horovod_tpu_torch.runner.http_kv import \
+        ThreadedHTTPServer  # noqa: F401
+    from horovod_tpu_torch.tracing.reader import read_jsonl  # noqa: F401
+    for name in ("DynamicBatcher", "PendingRequest", "SheddedError",
+                 "DrainingError", "DeadlineError", "ReplicaServer",
+                 "demo_apply", "demo_params", "Router", "RequestLog",
+                 "RequestFailed", "RequestRejected", "ready_endpoints",
+                 "ReplicaFleet", "LatencyWindow", "GenerateEngine",
+                 "GenRequest", "KVPagePlan", "PagePool", "SlotScheduler",
+                 "demo_gen_setup", "plan_kv_pages",
+                 "request_level_generate", "STAGES", "BurnRateSlo",
+                 "ExemplarRing", "WindowBooks", "close_books",
+                 "dominant_stage", "quantile", "residual_fraction"):
+        assert name in serving.__all__ and hasattr(serving, name), name
+    assert not hasattr(serving, "RolloutController")
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    """GenerateEngine, ReplicaServer, demo_gen_setup, flagship_gen_setup,
+    the replica CLI and ``python -m horovod_tpu_torch.serving`` take the
+    card unless asked for the CPU; without one they raise."""
+    from horovod_tpu_torch.serving import (GenerateEngine, ReplicaServer,
+                                           demo_gen_setup)
+    from horovod_tpu_torch.serving.__main__ import main as front_main
+    from horovod_tpu_torch.serving.generate import flagship_gen_setup
+    from horovod_tpu_torch.serving.replica import main as replica_main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo_gen_setup()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flagship_gen_setup()
+    params, cfg = demo_gen_setup(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerateEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaServer(dim=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaServer(mode="generate", gen_model=(params, cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replica_main(["--mode", "generate"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        front_main(["--replicas", "1"])
+    eng = GenerateEngine(params, cfg, device="cpu")
+    assert eng.device.type == "cpu" and eng.params["embed"].device.type \
+        == "cpu"
