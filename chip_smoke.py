@@ -258,6 +258,52 @@ the eight kernels is on its path):
   replica SIGKILLed mid-run: zero failed requests, streams equal to this
   process's engine, the exit a failure, the fleet healed to two.
 
+The second observability slice adds three phases around the flagship's
+training (full width, seed-0 weights; host and socket code, no kernel of
+its own: flash_attn_fwd and xent_fwd run in each, quantize and dequantize
+in the last), each phase's launch counts in ``obs_launches``:
+
+* ``[obs_exporter]``: an NCCL world of one with ``HVD_TPU_METRICS_PORT``
+  on a held free port, ``HVD_TPU_WATCHDOG_SECONDS=60`` and a timeline
+  shard; TELEMETRY_STEPS AdamW steps inside TelemetryCallback while a
+  thread scrapes ``/metrics`` at 10 Hz. Checks: ``init`` started the
+  exporter; ``/metrics`` (parsed by the port's ``parse_prometheus``)
+  counts every step in ``hvd_steps_total`` and the step-time histogram;
+  ``/healthz`` is 200 with the last step and the watchdog armed;
+  ``/debug/stacks`` taken by the scraper shows the training thread;
+  ``/debug/flight`` holds ``init`` and a ``step_end`` a step;
+  ``GET /debug/profile?steps=2`` after step OBS_PROFILE_AT arms a capture
+  that opens at the next step and whose Chrome trace names both kernels;
+  ``python -m horovod_tpu_torch.metrics top --once`` exits 0 with the step
+  line; the watchdog never fires; a shard is written. Then OBS_PAIRS
+  steps with and without the scraper, in turns, and the exporter's
+  render ms.
+* ``[obs_fleet_4rank]``: four gloo ranks (``--gloo-rank DIR obs_fleet``)
+  on cuda:0 as the local ranks of one host (exporters at base + local
+  rank), the fleet tree at arity 2 (1, 2 -> 0 and 3 -> 1) pushing every
+  0.5 s, shards on; OBS_FLEET_STEPS data-parallel AdamW steps, each marked
+  on the shard, then the tree flushed leaves first. Checks: rank 0's
+  ``/metrics/fleet`` covers ranks 0-3 at depth 2 with ``hvd_steps_total``
+  4 x the steps; each rank's clock offset finite and under 1 s; the
+  ranks bit-identical; ``python -m horovod_tpu_torch.diagnostics merge``
+  writes one process row a rank with its step marks; ``diagnostics
+  timeline`` over the four flight dumps puts every rank's ``step_end``
+  events on one timeline, in step order. It prints how long after the
+  first push the view covered every rank.
+* ``[obs_hang_autopsy]``: two gloo ranks (``--gloo-rank DIR obs_hang``),
+  the watchdog at OBS_HANG_WATCHDOG_S, each step the flagship's forward
+  and backward plus the eager int8 ``DistributedOptimizer`` sync; before
+  the last step's sync rank 1 sleeps OBS_HANG_STALL timeouts and rank 0
+  blocks in it. Checks: rank 0's ``/healthz`` goes 503 ``stalled``; each
+  watchdog fires once; the bundle holds both ranks' stacks, flight,
+  engine, metrics and summary files, ``merged_trace.json`` and
+  ``peer_rank1_{stacks,flight,engine}`` fetched over ``/debug/*`` while
+  rank 1 slept (its flight ends at step 2); rank 0's blocked frames name
+  the port's collective; its flight has step_end 1-2 and one trigger;
+  ``peers_fetched == [1]``; the last step completes on both ranks with
+  bit-identical parameters. It prints the seconds from the trigger to a
+  complete bundle and the bundle's bytes.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -273,11 +319,15 @@ import json
 import math
 import os
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
 import time
+
+# the one rule for holding free ports is the port's test helper's
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_port_worker import reserve_port, reserve_ports  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_TENSOR_FLOPS = 989e12    # dense bf16 tensor cores
@@ -427,6 +477,16 @@ SERVE_HTTP = 16           # [serve_http]: concurrent /generate requests
 SERVE_HTTP_AFTER = 8      # requests after the swap, and again under the drain
 SERVE_FLEET = 8           # [serve_fleet]: requests through the fleet
 SERVE_TIMEOUT_S = 240     # every wait of the serving phases
+OBS_SCRAPE_S = 0.1        # [obs_exporter]: the scraper's period (10 Hz)
+OBS_PAIRS = 20            # steps with and without the scraper, in turns
+OBS_PROFILE_STEPS = 2     # GET /debug/profile?steps=2
+OBS_PROFILE_AT = 4        # ... requested after this step
+OBS_FLEET_STEPS = 4       # [obs_fleet_4rank]
+OBS_FLEET_ARITY = 2       # a tree of depth 2: 1, 2 -> 0 and 3 -> 1
+OBS_FLEET_PUSH_S = 0.5
+OBS_HANG_WATCHDOG_S = 5   # [obs_hang_autopsy]
+OBS_HANG_STALL = 3        # rank 1 sleeps this many watchdog timeouts
+OBS_HANG_STEPS = 3        # the stall comes before the last step's sync
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1280,23 +1340,31 @@ def phase_telemetry_dp_int8(torch, hvd, mesh, cfg, init_sd, batch, counters,
     return launches
 
 
-def _reserve_port() -> socket.socket:
-    """A free port, held open (bound with SO_REUSEADDR, not listening)
-    while the ranks run: rank 0's TCP store can bind it, and no other
-    socket of the machine can take it between the pick and that bind."""
-    sock = socket.socket()
-    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    sock.bind(("127.0.0.1", 0))
-    return sock
+@contextlib.contextmanager
+def environ(**env):
+    """Set environment variables for the block and restore them after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str,
-                    backend: str = "GLOO") -> None:
+                    backend: str = "GLOO", one_host: bool = False,
+                    env_extra=None) -> None:
     """Start ``n`` ranks of this script (``--gloo-rank DIR ROLE``), gloo
-    world (or ``backend``), all on ``cuda:0`` as one-card hosts, with a
-    timeout; kill their process groups on the way out, and fail ``label``
-    if a rank did. The ranks write their results to ``out_dir``."""
-    reserved = _reserve_port()
+    world (or ``backend``), all on ``cuda:0`` as one-card hosts (or, with
+    ``one_host``, as the local ranks of one host: ``base + local_rank``
+    ports apart), with ``env_extra`` and a timeout; kill their process
+    groups on the way out, and fail ``label`` if a rank did. The ranks
+    write their results to ``out_dir``."""
+    reserved = reserve_port()
     port = reserved.getsockname()[1]
     procs, logs = [], []
     for r in range(n):
@@ -1307,6 +1375,10 @@ def _run_gloo_ranks(out_dir: str, n: int, role: str, label: str,
                    HVD_TPU_RENDEZVOUS_ADDR="127.0.0.1",
                    HVD_TPU_RENDEZVOUS_PORT=str(port),
                    HVD_TPU_GLOO_TIMEOUT_SECONDS=str(GLOO_TIMEOUT_S))
+        if one_host:
+            env.update(HVD_TPU_LOCAL_RANK=str(r), HVD_TPU_LOCAL_SIZE=str(n),
+                       HVD_TPU_CROSS_RANK="0", HVD_TPU_CROSS_SIZE="1")
+        env.update(env_extra or {})
         log = open(os.path.join(out_dir, f"rank{r}.log"), "w+")
         logs.append(log)
         procs.append(subprocess.Popen(
@@ -3910,6 +3982,605 @@ def phase_serve_fleet(torch, dev, card, served: dict) -> None:
         card=card)
 
 
+def http_get(port: int, path: str, timeout: float = 30):
+    """``(status, body)`` of one GET on this host, an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def repo_cli(*args, timeout: float = 120):
+    """``python -m <args>`` from this checkout; returns (exit code,
+    stdout, stderr)."""
+    path = [os.path.dirname(os.path.abspath(__file__)),
+            os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, path)))
+    r = subprocess.run([sys.executable, "-m", *args], env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+class Scraper:
+    """A thread scraping an exporter's ``/metrics`` every ``period``
+    seconds while ``active`` is set, keeping each scrape's round-trip
+    seconds and its parsed series, and one ``/debug/stacks`` answer taken
+    while the training thread runs."""
+
+    def __init__(self, port: int, period: float):
+        import threading
+        self.port, self.period = port, period
+        self.active = threading.Event()
+        self.done = threading.Event()
+        self.seconds, self.series, self.errors = [], [], []
+        self.stacks = None
+        self._thread = threading.Thread(target=self._loop, name="scraper",
+                                        daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        from horovod_tpu_torch.metrics.__main__ import parse_prometheus
+        while not self.done.is_set():
+            if not self.active.wait(0.05):
+                continue
+            t0 = time.perf_counter()
+            try:
+                code, body = http_get(self.port, "/metrics")
+                self.seconds.append(time.perf_counter() - t0)
+                self.series.append(parse_prometheus(body.decode()))
+                if self.stacks is None:
+                    self.stacks = http_get(self.port, "/debug/stacks")[1] \
+                        .decode()
+            except Exception as e:  # counted, and checked by the phase
+                self.errors.append(repr(e))
+            self.done.wait(max(0.0, self.period
+                               - (time.perf_counter() - t0)))
+
+    def stop(self):
+        self.done.set()
+        self._thread.join(timeout=30)
+
+
+def phase_obs_exporter(torch, cfg, init_sd, batch, counters):
+    """[obs_exporter]: an NCCL world of one with the worker exporter, the
+    watchdog and a timeline shard; TELEMETRY_STEPS AdamW steps inside
+    TelemetryCallback while a thread scrapes at 10 Hz, every check of the
+    module docstring, then the step timed with and without the scraper,
+    in turns. Returns the kernels' launches."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import profiling
+    from horovod_tpu_torch.common.basics import _state
+    from horovod_tpu_torch.diagnostics import watchdog
+    from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+    from horovod_tpu_torch.metrics.__main__ import parse_prometheus
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          make_train_step)
+    tokens, targets = batch
+    with tempfile.TemporaryDirectory(prefix="obs_exporter_") as tmp:
+        os.makedirs(os.path.join(tmp, "timeline"))
+        base, held = reserve_ports(1)
+        with environ(HVD_TPU_METRICS_PORT=base, HVD_TPU_WATCHDOG_SECONDS=60,
+                     HVD_TPU_TIMELINE=os.path.join(tmp, "timeline") + os.sep,
+                     HVD_TPU_TIMELINE_ALL_RANKS=1,
+                     HVD_TPU_PROFILE_DIR=os.path.join(tmp, "profile"),
+                     HVD_TPU_AUTOPSY_DIR=os.path.join(tmp, "autopsy")):
+            reset_observability()
+            watchdog.reset()
+            hvd.init()
+            for sock in held:
+                sock.close()
+            exp = _state.metrics_exporter
+            check(exp is not None and exp.port == base,
+                  f"obs_exporter: init started no exporter on :{base}")
+            model = Transformer(cfg)
+            model.load_state_dict(init_sd)
+            opt = init_opt_state(adamw, model)
+            step = make_train_step(cfg)
+            cb = hvd.TelemetryCallback(units_per_step=tokens.numel(),
+                                       unit="tokens")
+            check(cb.watchdog is not None and cb.watchdog.armed,
+                  "obs_exporter: the callback armed no watchdog")
+            scraper = Scraper(base, OBS_SCRAPE_S)
+            for c in counters:
+                c.launches = 0
+            scraper.active.set()
+            losses, planned = [], None
+            for i in range(TELEMETRY_STEPS):
+                cb.on_step_begin()
+                losses.append(float(step(model, opt, tokens, targets)[2]))
+                cb.on_step_end()
+                if i + 1 == OBS_PROFILE_AT:
+                    code, body = http_get(
+                        base, f"/debug/profile?steps={OBS_PROFILE_STEPS}")
+                    planned = json.loads(body) if code == 200 else None
+            scraper.active.clear()
+            launches = {"flash_attention_fwd": counters[0].launches,
+                        "xent_fwd": counters[1].launches}
+            m_code, m_body = http_get(base, "/metrics")
+            series = parse_prometheus(m_body.decode())
+            h_code, h_body = http_get(base, "/healthz")
+            health = json.loads(h_body)
+            f_code, f_body = http_get(base, "/debug/flight")
+            flight = json.loads(f_body)["events"]
+            top_rc, top_out, top_err = repo_cli(
+                "horovod_tpu_torch.metrics", "top", "--url",
+                f"http://127.0.0.1:{base}", "--once")
+            caps = profiling.recent_captures()
+            kernels = trace_kernel_names(caps[0]["path"]) if caps else []
+
+            # the scraper's cost: steps with and without it, in turns
+            # (which goes first swapped every pair)
+            with_s, without_s = [], []
+            for i in range(OBS_PAIRS):
+                for scraped in ((True, False) if i % 2 else (False, True)):
+                    (scraper.active.set if scraped
+                     else scraper.active.clear)()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cb.on_step_begin()
+                    float(step(model, opt, tokens, targets)[2])
+                    cb.on_step_end()
+                    (with_s if scraped else without_s).append(
+                        time.perf_counter() - t0)
+            scraper.active.clear()
+            scraper.stop()
+            render_s = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                exp.render()
+                render_s.append(time.perf_counter() - t0)
+            fired = cb.watchdog.trigger_count
+            cb.on_train_end()
+            hvd.shutdown()
+            shard = os.path.join(tmp, "timeline", "timeline.rank0.json")
+            shard_ok = os.path.exists(shard) and os.path.getsize(shard) > 0
+            check(_state.metrics_exporter is None,
+                  "obs_exporter: shutdown left the exporter running")
+    steps_end = sorted(e["step"] for e in flight if e["kind"] == "step_end")
+    top_line = [ln for ln in top_out.splitlines()
+                if ln.startswith("steps total")]
+    say("obs_exporter", steps=TELEMETRY_STEPS,
+        losses=",".join(f"{x:.6f}" for x in losses),
+        scrapes=len(scraper.series), scrape_errors=len(scraper.errors),
+        scrape_ms_q1_med_q3=quartiles_ms(scraper.seconds),
+        render_ms_q1_med_q3=quartiles_ms(render_s),
+        metrics_bytes=len(m_body), pairs=OBS_PAIRS,
+        step_ms_scraped_q1_med_q3=quartiles_ms(with_s),
+        step_ms_unscraped_q1_med_q3=quartiles_ms(without_s),
+        healthz=h_code, last_step=health.get("last_step"),
+        watchdog_armed=health.get("watchdog", {}).get("armed"),
+        flight_step_ends=len(steps_end), watchdog_fired=fired,
+        profile_planned=bool(planned and planned.get("started")),
+        captures=len(caps), trace_kernels=len(kernels),
+        top=top_line[0] if top_line else None,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"obs_exporter: losses {losses}")
+    check(not scraper.errors and len(scraper.series) >= 1,
+          f"obs_exporter: {len(scraper.series)} scrapes, errors "
+          f"{scraper.errors[:3]}")
+    check(m_code == 200 and series.get("hvd_steps_total") == TELEMETRY_STEPS
+          and series.get("hvd_step_time_seconds_count") == TELEMETRY_STEPS,
+          f"obs_exporter: /metrics {m_code} counts "
+          f"{series.get('hvd_steps_total')} "
+          f"{series.get('hvd_step_time_seconds_count')}")
+    check(h_code == 200 and health.get("status") == "ok"
+          and health.get("last_step") == TELEMETRY_STEPS
+          and health.get("watchdog", {}).get("armed") is True,
+          f"obs_exporter: /healthz {h_code} {health}")
+    check(scraper.stacks is not None
+          and "phase_obs_exporter" in scraper.stacks,
+          "obs_exporter: /debug/stacks does not show the training thread")
+    check(f_code == 200 and any(e["kind"] == "init" for e in flight)
+          and steps_end == list(range(1, TELEMETRY_STEPS + 1)),
+          f"obs_exporter: /debug/flight step_ends {steps_end}")
+    check(planned is not None and planned.get("started") is True
+          and planned.get("steps") == OBS_PROFILE_STEPS,
+          f"obs_exporter: /debug/profile answered {planned}")
+    check(len(caps) == 1 and caps[0]["path"] == planned["path"]
+          and caps[0]["steps"] == OBS_PROFILE_STEPS,
+          f"obs_exporter: captures {caps}")
+    for want in ("flash_fwd_kernel", "xent_fwd_kernel"):
+        check(any(want in k for k in kernels),
+              f"obs_exporter: the capture names no {want}: {kernels[:20]}")
+    check(top_rc == 0 and top_line == [f"steps total     : "
+                                       f"{TELEMETRY_STEPS}"],
+          f"obs_exporter: metrics top exited {top_rc}: {top_out} "
+          f"{top_err[-2000:]}")
+    check(fired == 0 and not any(e["kind"] == "watchdog_trigger"
+                                 for e in flight),
+          f"obs_exporter: the watchdog fired {fired} time(s)")
+    check(shard_ok, "obs_exporter: no timeline shard")
+    want = {"flash_attention_fwd": cfg.n_layers * TELEMETRY_STEPS,
+            "xent_fwd": TELEMETRY_STEPS}
+    check(launches == want, f"obs_exporter: launches {launches}, expected "
+                            f"{want}")
+    del model, opt
+    recorder().clear()
+    return launches
+
+
+def obs_rank_setup(torch):
+    """One rank of an observability world: ``init``, the flagship from
+    the seed-0 weights on ``cuda:0`` (every rank of the world shares the
+    card), this rank's rows of the batch over ``{dp: size}``, the launch
+    counters zeroed. Returns ``(hvd, model, mesh, local, counters)``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.entry import entry
+    from horovod_tpu_torch.ops import attention, quantize, xent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init()
+    _, (model, tokens, targets) = entry(device=torch.device("cuda", 0))
+    mesh = hvd.build_mesh(dp=hvd.size())
+    local = hvd.shard_batch(tokens, targets, mesh)
+    counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
+                "xent_fwd": xent.xent_fwd_cuda,
+                **{fn.__name__[:-len("_cuda")]: fn
+                   for fn in quantize.LAUNCHERS}}
+    for c in counters.values():
+        c.launches = 0
+    return hvd, model, mesh, local, counters
+
+
+def obs_fleet_rank_main(out_dir: str) -> int:
+    """One rank of [obs_fleet_4rank]: OBS_FLEET_STEPS data-parallel AdamW
+    steps of the flagship inside TelemetryCallback, each step marked on
+    the rank's timeline shard; then the tree flushed leaves first and
+    rank 0's ``/metrics/fleet`` read. Rank 0 also watches its fleet view
+    from init on: when the first push arrived and when it covered every
+    rank. Writes ``rank<r>.json`` and the flight ring to
+    ``flight/hvd_flight_rank<r>.json``."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common.basics import _state
+    from horovod_tpu_torch.diagnostics.flight_recorder import (recorder,
+                                                               wall_offset)
+    from horovod_tpu_torch.metrics.__main__ import parse_prometheus
+    from horovod_tpu_torch.metrics.fleet import tree_depth
+    from horovod_tpu_torch.models import adamw, init_opt_state, make_train_step
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    r, n = hvd.rank(), hvd.size()
+    exp = _state.metrics_exporter
+    fleet = exp.fleet
+    seen, stop = {}, threading.Event()
+
+    def watch():
+        # seconds from init: the children push from their own init on
+        t0 = time.perf_counter()
+        while not stop.wait(0.02):
+            if "first_push" not in seen and fleet.pushes_received > 0:
+                seen["first_push"] = time.perf_counter() - t0
+            if fleet.subtree_doc(consume_window=False)["covers"] \
+                    == list(range(n)):
+                seen["covered"] = time.perf_counter() - t0
+                return
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    if r == 0:
+        watcher.start()
+    hvd, model, mesh, local, counters = obs_rank_setup(torch)
+    opt = init_opt_state(adamw, model)
+    step = make_train_step(model.cfg, mesh)
+    cb = hvd.TelemetryCallback(units_per_step=local[0].numel(),
+                               unit="tokens")
+    losses = []
+    for i in range(OBS_FLEET_STEPS):
+        cb.on_step_begin()
+        losses.append(float(step(model, opt, *local)[2]))
+        cb.on_step_end()
+        _state.timeline.instant("step_end", {"step": i + 1})
+    cb.on_train_end()
+    launches = {k: c.launches for k, c in counters.items()}
+    # leaves first, so rank 0's view covers every rank's last step
+    depth = tree_depth(r + 1, OBS_FLEET_ARITY)   # hops from r to rank 0
+    for level in range(tree_depth(n, OBS_FLEET_ARITY), 0, -1):
+        dist.barrier()
+        if depth == level:
+            fleet.flush()
+    dist.barrier()
+    res = {"rank": r, "losses": losses, "digest": params_digest(model),
+           "offset_s": wall_offset(), "launches": launches,
+           "children": fleet.children, "parent": fleet.parent,
+           "pushes_sent": fleet.pushes_sent,
+           "pushes_received": fleet.pushes_received}
+    if r == 0:
+        watcher.join(timeout=30)
+        stop.set()
+        code, body = http_get(exp.port, "/metrics/fleet")
+        series = parse_prometheus(body.decode())
+        res.update(fleet_code=code, fleet_series={
+            k: v for k, v in series.items() if k.startswith(
+                ("hvd_fleet_", "hvd_steps_total"))},
+            covers=fleet.subtree_doc(consume_window=False)["covers"],
+            first_push_s=seen.get("first_push"),
+            covered_s=seen.get("covered"))
+    os.makedirs(os.path.join(out_dir, "flight"), exist_ok=True)
+    recorder().dump_to(os.path.join(out_dir, "flight",
+                                    f"hvd_flight_rank{r}.json"))
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    hvd.shutdown()
+    return 0
+
+
+def phase_obs_fleet(torch, card: str) -> dict:
+    """[obs_fleet_4rank]: four gloo ranks of this script on cuda:0 as the
+    local ranks of one host (exporters at consecutive ports), the fleet
+    tree at arity 2 pushing every OBS_FLEET_PUSH_S, timeline shards on;
+    the checks of the module docstring. Returns rank 0's launches."""
+    with tempfile.TemporaryDirectory(prefix="obs_fleet_") as out_dir:
+        tl = os.path.join(out_dir, "timeline")
+        os.makedirs(tl)
+        base, held = reserve_ports(4)
+        try:
+            _run_gloo_ranks(out_dir, 4, "obs_fleet", "obs_fleet_4rank",
+                            one_host=True, env_extra={
+                                "HVD_TPU_METRICS_PORT": str(base),
+                                "HVD_TPU_FLEET_ARITY": str(OBS_FLEET_ARITY),
+                                "HVD_TPU_FLEET_PUSH_SECONDS":
+                                    str(OBS_FLEET_PUSH_S),
+                                "HVD_TPU_TIMELINE": tl + os.sep,
+                                "HVD_TPU_TIMELINE_ALL_RANKS": "1",
+                                "HVD_TPU_AUTOPSY_DIR":
+                                    os.path.join(out_dir, "autopsy")})
+        finally:
+            for sock in held:
+                sock.close()
+        res = []
+        for r in range(4):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        merged = os.path.join(out_dir, "merged.json")
+        m_rc, m_out, m_err = repo_cli("horovod_tpu_torch.diagnostics",
+                                      "merge", "--dir", tl, "-o", merged)
+        with open(merged) as f:
+            mdoc = json.load(f)
+        timeline = os.path.join(out_dir, "timeline_flight.json")
+        t_rc, t_out, t_err = repo_cli(
+            "horovod_tpu_torch.diagnostics", "timeline", "--dir",
+            os.path.join(out_dir, "flight"), "-o", timeline)
+        with open(timeline) as f:
+            tdoc = json.load(f)
+    rows = {e["pid"]: e["args"]["name"] for e in mdoc["traceEvents"]
+            if e.get("ph") == "M" and e["name"] == "process_name"}
+    marks = {}
+    for e in mdoc["traceEvents"]:
+        if e.get("name") == "step_end" and e.get("ph") == "i":
+            marks.setdefault(e["pid"], []).append(e["args"]["step"])
+    tracks = {e["pid"]: e["args"]["name"] for e in tdoc["traceEvents"]
+              if e.get("ph") == "M" and e["name"] == "process_name"}
+    by_rank = {}
+    for e in sorted((e for e in tdoc["traceEvents"]
+                     if e.get("ph") == "i" and e.get("name") == "step_end"),
+                    key=lambda e: e["ts"]):
+        by_rank.setdefault(tracks[e["pid"]], []).append(e["args"]["step"])
+    r0 = res[0]
+    fs = r0["fleet_series"]
+    say("obs_fleet_4rank", ranks=4, arity=OBS_FLEET_ARITY,
+        push_s=OBS_FLEET_PUSH_S, tree_depth=fs.get("hvd_fleet_tree_depth"),
+        fleet_steps_total=fs.get("hvd_steps_total"),
+        ranks_reporting=fs.get("hvd_fleet_ranks_reporting"),
+        covers=",".join(map(str, r0["covers"])),
+        first_push_s=r0["first_push_s"], covered_all_s=r0["covered_s"],
+        covered_after_first_push_s=(r0["covered_s"] - r0["first_push_s"]
+                                    if r0["covered_s"] is not None
+                                    and r0["first_push_s"] is not None
+                                    else None),
+        pushes_received=",".join(str(x["pushes_received"]) for x in res),
+        offsets_s=",".join(f"{x['offset_s']:.6f}" for x in res),
+        merged_rows=len(rows), timeline_tracks=len(by_rank),
+        losses=",".join(f"{x:.6f}" for x in r0["losses"]), card=card)
+    check(r0["fleet_code"] == 200 and r0["covers"] == [0, 1, 2, 3]
+          and fs.get("hvd_fleet_ranks_reporting") == 4
+          and fs.get("hvd_fleet_tree_depth") == 2,
+          f"obs_fleet_4rank: /metrics/fleet {r0['fleet_code']} covers "
+          f"{r0['covers']} {fs}")
+    check(fs.get("hvd_steps_total") == 4 * OBS_FLEET_STEPS,
+          f"obs_fleet_4rank: fleet hvd_steps_total "
+          f"{fs.get('hvd_steps_total')}, expected {4 * OBS_FLEET_STEPS}")
+    check([x["children"] for x in res] == [[1, 2], [3], [], []],
+          f"obs_fleet_4rank: tree {[x['children'] for x in res]}")
+    check(r0["covered_s"] is not None, "obs_fleet_4rank: the fleet view "
+                                       "never covered every rank")
+    for x in res:
+        check(math.isfinite(x["offset_s"]) and abs(x["offset_s"]) < 1.0,
+              f"obs_fleet_4rank: rank {x['rank']}'s clock offset "
+              f"{x['offset_s']}")
+        ls = x["losses"]
+        check(all(map(math.isfinite, ls)) and ls[-1] < ls[0],
+              f"obs_fleet_4rank: rank {x['rank']} losses {ls}")
+        check(x["launches"]["flash_attention_fwd"] > 0
+              and x["launches"]["xent_fwd"] > 0,
+              f"obs_fleet_4rank: rank {x['rank']} launches {x['launches']}")
+    check(len({x["digest"] for x in res}) == 1,
+          "obs_fleet_4rank: the ranks' parameters differ")
+    check(m_rc == 0 and sorted(rows.values())
+          == [f"rank {r}" for r in range(4)]
+          and all(marks.get(r) == list(range(1, OBS_FLEET_STEPS + 1))
+                  for r in range(4)),
+          f"obs_fleet_4rank: diagnostics merge rc {m_rc} rows {rows} "
+          f"marks {marks} {m_err[-2000:]}")
+    check(t_rc == 0 and sorted(by_rank) == [f"flight rank {r}"
+                                            for r in range(4)]
+          and all(v == list(range(1, OBS_FLEET_STEPS + 1))
+                  for v in by_rank.values()),
+          f"obs_fleet_4rank: diagnostics timeline rc {t_rc} step_ends "
+          f"{by_rank} {t_err[-2000:]}")
+    return r0["launches"]
+
+
+def obs_hang_rank_main(out_dir: str) -> int:
+    """One rank of [obs_hang_autopsy]: the flagship's steps with the eager
+    int8 ``DistributedOptimizer`` sync inside TelemetryCallback, the
+    watchdog at OBS_HANG_WATCHDOG_S; before the last step's sync rank 1
+    sleeps OBS_HANG_STALL watchdog timeouts, and rank 0 blocks in that
+    sync. Rank 0 polls its own ``/healthz`` meanwhile. One warm-up step
+    runs before the callback arms the watchdog. Writes ``rank<r>.json``."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common.basics import _state
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.models import adamw, make_train_step
+    hvd, model, mesh, local, counters = obs_rank_setup(torch)
+    r = hvd.rank()
+    port = _state.metrics_exporter.port
+    opt = hvd.DistributedOptimizer(adamw(model.parameters()),
+                                   named_parameters=model.named_parameters(),
+                                   compression=Compression.int8)
+    step = make_train_step(model.cfg)
+    float(step(model, opt, *local)[2])          # warm-up, unobserved
+    health, stop = [], threading.Event()
+
+    def poll():
+        while not stop.wait(0.25):
+            code, body = http_get(port, "/healthz", timeout=10)
+            health.append((code, json.loads(body).get("status")))
+
+    poller = threading.Thread(target=poll, daemon=True)
+    for c in counters.values():
+        c.launches = 0
+    cb = hvd.TelemetryCallback(units_per_step=local[0].numel(),
+                               unit="tokens")
+    if r == 0:
+        poller.start()
+    losses, stalled_s = [], None
+    for i in range(OBS_HANG_STEPS):
+        cb.on_step_begin()
+        if r == 1 and i == OBS_HANG_STEPS - 1:
+            t0 = time.perf_counter()
+            time.sleep(OBS_HANG_STALL * OBS_HANG_WATCHDOG_S)
+            stalled_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses.append(float(step(model, opt, *local)[2]))
+        if i == OBS_HANG_STEPS - 1:
+            stalled_s = stalled_s or time.perf_counter() - t0
+        cb.on_step_end()
+        _state.timeline.instant("step_end", {"step": i + 1})
+    fired = cb.watchdog.trigger_count
+    cb.on_train_end()
+    stop.set()
+    res = {"rank": r, "losses": losses, "digest": params_digest(model),
+           "fired": fired, "health": health, "stalled_s": stalled_s,
+           "launches": {k: c.launches for k, c in counters.items()}}
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    hvd.shutdown()
+    return 0
+
+
+def phase_obs_hang(torch, card: str) -> dict:
+    """[obs_hang_autopsy]: two gloo ranks of this script on cuda:0, one
+    stalled; the checks of the module docstring. Returns rank 0's
+    launches."""
+    with tempfile.TemporaryDirectory(prefix="obs_hang_") as out_dir:
+        bundle = os.path.join(out_dir, "bundle")
+        tl = os.path.join(out_dir, "timeline")
+        os.makedirs(tl)
+        base, held = reserve_ports(2)
+        try:
+            _run_gloo_ranks(out_dir, 2, "obs_hang", "obs_hang_autopsy",
+                            one_host=True, env_extra={
+                                "HVD_TPU_METRICS_PORT": str(base),
+                                "HVD_TPU_WATCHDOG_SECONDS":
+                                    str(OBS_HANG_WATCHDOG_S),
+                                "HVD_TPU_AUTOPSY_DIR": bundle,
+                                "HVD_TPU_TIMELINE": tl + os.sep,
+                                "HVD_TPU_TIMELINE_ALL_RANKS": "1"})
+        finally:
+            for sock in held:
+                sock.close()
+        res = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        files = sorted(os.listdir(bundle))
+        sizes = {f: os.path.getsize(os.path.join(bundle, f)) for f in files}
+
+        def load(name):
+            with open(os.path.join(bundle, name)) as f:
+                return f.read() if name.endswith(".txt") else json.load(f)
+
+        stacks0 = load("stacks_rank0.txt") \
+            if "stacks_rank0.txt" in files else ""
+        flight0 = load("flight_rank0.json")["events"] \
+            if "flight_rank0.json" in files else []
+        summary0 = load("summary_rank0.json") \
+            if "summary_rank0.json" in files else {}
+        peer_flight = load("peer_rank1_flight.json")["events"] \
+            if "peer_rank1_flight.json" in files else []
+        merged = load("merged_trace.json") \
+            if "merged_trace.json" in files else {"traceEvents": []}
+    # the main thread's section of rank 0's stacks (faulthandler lists it
+    # last, after "Thread ... (most recent call first):")
+    blocked = [sec for sec in stacks0.split("\n\n")
+               if "obs_hang_rank_main" in sec]
+    trig = [e for e in flight0 if e["kind"] == "watchdog_trigger"]
+    to_bundle = (summary0["written_at"] - trig[0]["ts"]
+                 if trig and summary0 else None)
+    step_ends0 = [e["step"] for e in flight0 if e["kind"] == "step_end"]
+    peer_steps = [e["step"] for e in peer_flight if e["kind"] == "step_end"]
+    stalled = [s for c, s in res[0]["health"] if c == 503]
+    say("obs_hang_autopsy", watchdog_s=OBS_HANG_WATCHDOG_S,
+        stall_s=res[1]["stalled_s"], rank0_blocked_s=res[0]["stalled_s"],
+        fired=",".join(str(x["fired"]) for x in res),
+        healthz_503=len(stalled), healthz_polls=len(res[0]["health"]),
+        trigger_to_bundle_s=to_bundle, bundle_files=len(files),
+        bundle_bytes=sum(sizes.values()),
+        peers_fetched=summary0.get("peers_fetched"),
+        peer_flight_steps=peer_steps, flight_steps=step_ends0,
+        merged_trace_events=len(merged["traceEvents"]), card=card)
+    check(stalled and set(stalled) == {"stalled"},
+          f"obs_hang_autopsy: rank 0's /healthz never went 503 stalled: "
+          f"{res[0]['health']}")
+    check([x["fired"] for x in res] == [1, 1],
+          f"obs_hang_autopsy: watchdog fired {[x['fired'] for x in res]}")
+    want = {f"{k}_rank{r}.{'txt' if k == 'stacks' else 'json'}"
+            for r in (0, 1)
+            for k in ("stacks", "flight", "engine", "metrics", "summary")}
+    want |= {"merged_trace.json", "peer_rank1_stacks.txt",
+             "peer_rank1_flight.json", "peer_rank1_engine.json"}
+    check(want <= set(files), f"obs_hang_autopsy: bundle lacks "
+                              f"{sorted(want - set(files))}")
+    check(len(blocked) == 1 and ("mesh_collectives.py" in blocked[0]
+                                 or "train/optimizer.py" in blocked[0]),
+          f"obs_hang_autopsy: rank 0's blocked frames name no collective: "
+          f"{blocked}")
+    check(step_ends0 == [1, 2] and len(trig) == 1,
+          f"obs_hang_autopsy: rank 0's flight step_ends {step_ends0}, "
+          f"{len(trig)} trigger(s)")
+    check(summary0.get("peers_fetched") == [1]
+          and summary0.get("peers_unreachable") == [],
+          f"obs_hang_autopsy: summary {summary0}")
+    check(peer_steps == [1, 2], f"obs_hang_autopsy: rank 1's flight was "
+                                f"not fetched mid-stall: {peer_steps}")
+    check(any(e.get("ph") == "M" for e in merged["traceEvents"]),
+          "obs_hang_autopsy: empty merged trace")
+    for x in res:
+        ls = x["losses"]
+        check(len(ls) == OBS_HANG_STEPS and all(map(math.isfinite, ls)),
+              f"obs_hang_autopsy: rank {x['rank']} losses {ls}")
+        for k in ("flash_attention_fwd", "xent_fwd", "quantize",
+                  "dequantize"):
+            check(x["launches"][k] > 0, f"obs_hang_autopsy: rank "
+                                        f"{x['rank']} launches {k} 0")
+    check(res[0]["digest"] == res[1]["digest"],
+          "obs_hang_autopsy: the ranks' parameters differ after the stall")
+    return res[0]["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4148,10 +4819,32 @@ def main() -> int:
               for n in got.values()),
           f"a kernel ran on the serving path: {serve_launches}")
 
+    # -- the live observability plane around the flagship's training: the
+    # worker exporter in an NCCL world of one, the fleet tree over four
+    # gloo ranks, and a hang caught by the watchdog with its autopsy
+    # bundle over two (rank 0's launches for the gloo worlds)
+    for c in every.values():
+        c.launches = 0
+    obs_launches = {"obs_exporter": phase_obs_exporter(
+        torch, model.cfg, init_sd, (tokens, targets), counters)}
+    obs_launches["obs_fleet_4rank"] = phase_obs_fleet(torch, card)
+    obs_launches["obs_hang_autopsy"] = phase_obs_hang(torch, card)
+    for k in kernels:
+        k["obs_launches"] = {ph: got.get(k["name"], 0)
+                             for ph, got in obs_launches.items()}
+    for ph, got in obs_launches.items():
+        check(got["flash_attention_fwd"] > 0 and got["xent_fwd"] > 0,
+              f"flash_attn_fwd or xent_fwd did not run in [{ph}]: {got}")
+    check(all(obs_launches["obs_hang_autopsy"][k] > 0
+              for k in ("quantize", "dequantize")),
+          f"quantize or dequantize did not run in [obs_hang_autopsy]: "
+          f"{obs_launches['obs_hang_autopsy']}")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
-            "pp_launches", "ckpt_launches", "serve_launches")
+            "pp_launches", "ckpt_launches", "serve_launches",
+            "obs_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4174,6 +4867,10 @@ if __name__ == "__main__":
             sys.exit(zoo_dp_rank_main(sys.argv[2]))
         if role == "bert_tp":
             sys.exit(bert_tp_rank_main(sys.argv[2]))
+        if role == "obs_fleet":
+            sys.exit(obs_fleet_rank_main(sys.argv[2]))
+        if role == "obs_hang":
+            sys.exit(obs_hang_rank_main(sys.argv[2]))
         if role in PIPELINE_PHASES:
             sys.exit(pipeline_rank_main(sys.argv[2], role))
         sys.exit(layout_rank_main(sys.argv[2], role))

@@ -25,7 +25,12 @@ with a persistent plan cache.
 The train loop is observed by ``TelemetryCallback`` (step time, tokens/s,
 MFU against the card's peak, the goodput ledger, the step time series,
 anomaly detectors, ``torch.profiler`` captures); ``metrics_snapshot()``
-returns the registry all of it writes to. A run saves asynchronously and
+returns the registry all of it writes to. ``init`` brings up the live
+half: the per-worker exporter (``HVD_TPU_METRICS_PORT``: ``/metrics``,
+``/healthz``, ``/debug/*``, the fleet fan-in tree), the hang watchdog
+whose autopsy bundle names which rank is stuck in what, and per-rank
+timeline shards merged across ranks (``python -m
+horovod_tpu_torch.diagnostics``, ``python -m horovod_tpu_torch.metrics``). A run saves asynchronously and
 resumes through ``ShardedCheckpointer`` (the JAX package's on-disk format,
 read both ways) and ``callbacks.CheckpointCallback``, with its data
 position from ``data.ShardedDataset``'s cursor; ``ReplicaCanary`` and
@@ -49,6 +54,8 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     rank,
     shutdown,
     size,
+    start_timeline,
+    stop_timeline,
 )
 from horovod_tpu_torch.common.process_sets import (  # noqa: F401
     ProcessSet,

@@ -94,10 +94,11 @@ def _full_index(shape: Tuple[int, ...]) -> List[List[int]]:
 
 
 def _notify_progress() -> None:
-    """A commit or a restore is forward progress. The JAX store tells its
-    hang watchdog so here (``diagnostics.watchdog.notify_progress``); the
-    port's watchdog arrives with ROADMAP queue 1 item 5, and this is its
-    seam."""
+    """A commit or a restore is forward progress: the hang watchdog's
+    clock restarts (as the JAX store's ``diagnostics.watchdog.
+    notify_progress`` call does)."""
+    from horovod_tpu_torch.diagnostics.watchdog import notify_progress
+    notify_progress()
 
 
 class _Plan:

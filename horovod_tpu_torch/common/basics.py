@@ -17,6 +17,14 @@ the rendezvous the JAX launcher exports (``HOROVOD_GLOO_RENDEZVOUS_ADDR``/
 in-process store. The eager API (broadcasts, ``DistributedOptimizer``
 without an axis) keeps the JAX ``LocalBackend``'s scaled identity at size 1,
 while a mesh axis of size 1 still runs its collective on the group.
+
+``init`` also brings up the diagnostics plane, as the JAX ``init`` does:
+the host timeline (``HVD_TPU_TIMELINE``; with
+``HVD_TPU_TIMELINE_ALL_RANKS`` a shard a rank, anchored by the clock
+offset measured over the new group), the flight recorder's crash hooks
+and ``init`` event, the hang watchdog's re-arm, and the per-worker
+exporter (``HVD_TPU_METRICS_PORT``) with its fleet tree node.
+``shutdown`` stands them down before the group is destroyed.
 """
 
 from __future__ import annotations
@@ -25,11 +33,13 @@ import atexit
 import datetime
 import os
 import threading
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch.common.config import get_config, reset_config
+from horovod_tpu_torch.common.config import (Config, get_config,
+                                             reset_config)
 
 
 class NotInitializedError(RuntimeError):
@@ -48,7 +58,11 @@ class _GlobalState:
         self.local_size = 1
         self.cross_rank = 0
         self.cross_size = 1
+        self.hostname = ""
         self.backend = ""
+        self.config: Optional[Config] = None
+        self.timeline = None            # common.timeline.Timeline
+        self.metrics_exporter = None    # metrics.exporter.MetricsExporter
 
 
 _state = _GlobalState()
@@ -67,6 +81,8 @@ def _read_identity_from_env() -> dict:
         local_size=geti("LOCAL_SIZE", 1),
         cross_rank=geti("CROSS_RANK", 0),
         cross_size=geti("CROSS_SIZE", 1),
+        hostname=os.environ.get(
+            "HVD_TPU_HOSTNAME", os.environ.get("HOROVOD_HOSTNAME", "")),
     )
 
 
@@ -120,19 +136,88 @@ def init() -> None:
         _state.cross_rank = ident["cross_rank"]
         _state.cross_size = ident["cross_size"]
         _state.backend = backend
+        _state.config = cfg
+        _state.hostname = ident["hostname"] or os.uname().nodename
         from horovod_tpu_torch.common.process_sets import global_process_set
         global_process_set.ranks = list(range(size))
+
+        # Timeline (host-side chrome tracing): rank 0 owns the
+        # HVD_TPU_TIMELINE file (the port has no engine writing it, as the
+        # JAX package's multi-process core does). With
+        # HVD_TPU_TIMELINE_ALL_RANKS every rank writes a shard
+        # (<timeline>.rank<r>.json) instead, anchored on the wall clock
+        # and the offset to rank 0 measured over the new group, merged
+        # by `python -m horovod_tpu_torch.diagnostics merge`.
+        from horovod_tpu_torch.common.timeline import Timeline, shard_path
+        all_shards = bool(cfg.timeline) and cfg.timeline_all_ranks
+        own_file = cfg.timeline if not all_shards else ""
+        _state.timeline = Timeline(rank, own_file)
+        if all_shards:
+            from horovod_tpu_torch.diagnostics.clock import \
+                estimate_wall_offset
+            offset = estimate_wall_offset()
+            # the flight recorder shares the shard's offset so the
+            # merged timeline aligns flight events with shard spans
+            from horovod_tpu_torch.diagnostics.flight_recorder import \
+                set_wall_offset
+            set_wall_offset(offset)
+            _state.timeline.start_shard(
+                shard_path(cfg.timeline, rank), wall_offset_s=offset,
+                mark_cycles=cfg.timeline_mark_cycles)
+
+        # Flight recorder: always on; crash hooks make an uncaught
+        # exception leave a dump next to the autopsy bundle. Span
+        # counters restart with the world.
+        from horovod_tpu_torch.diagnostics import spans as _spans
+        _spans.reset()
+        from horovod_tpu_torch.diagnostics import watchdog as _wd
+        _wd.resume()  # re-arm across a shutdown->init cycle
+        from horovod_tpu_torch.diagnostics.flight_recorder import (
+            install_crash_hooks, record_event)
+        install_crash_hooks()
+        record_event("init", rank=rank, size=size, backend=backend)
+
         _state.initialized = True
+
+        # Per-worker /metrics + /healthz exporter (HVD_TPU_METRICS_PORT).
+        # After the initialized flag: /healthz reports live state, and a
+        # bind failure only warns.
+        from horovod_tpu_torch.metrics.exporter import start_worker_exporter
+        _state.metrics_exporter = start_worker_exporter(_state)
 
 
 def shutdown() -> None:
-    """Destroy the process group; ``init`` may be called again after."""
+    """Stand the diagnostics plane down and destroy the process group;
+    ``init`` may be called again after."""
     with _state.lock:
         if not _state.initialized:
             return
-        _state.initialized = False
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        from horovod_tpu_torch.diagnostics.flight_recorder import record_event
+        record_event("shutdown", rank=_state.rank)
+        try:
+            # a watchdog must not run against a torn-down world, but a
+            # shutdown->init cycle must not silently disarm it either:
+            # suspend (remember armed); init() resumes it
+            from horovod_tpu_torch.diagnostics import watchdog as _wd
+            _wd.suspend()
+        except Exception:
+            pass
+        try:
+            # the exporter and its fleet thread push to peers over the
+            # world's addresses: stopped before the group goes
+            if _state.metrics_exporter is not None:
+                try:
+                    _state.metrics_exporter.stop()
+                except Exception:
+                    pass
+                _state.metrics_exporter = None
+            if _state.timeline is not None:
+                _state.timeline.close()
+                _state.timeline = None
+        finally:
+            _state.initialized = False
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 atexit.register(shutdown)
@@ -178,6 +263,18 @@ def is_homogeneous() -> bool:
     count accounts for every process."""
     st = _require_init()
     return st.local_size * max(st.cross_size, 1) == st.size
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Dynamic timeline start (reference: ``horovod_start_timeline``,
+    ``operations.cc:1011-1041``; coordinator-only file). The JAX package
+    hands the file to its engine when one runs multi-process; the port's
+    host timeline owns it."""
+    _require_init().timeline.start(file_path, mark_cycles=mark_cycles)
+
+
+def stop_timeline() -> None:
+    _require_init().timeline.stop()
 
 
 def backend() -> str:

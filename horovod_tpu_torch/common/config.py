@@ -72,7 +72,18 @@ class Config:
     ``checkpoint_commit_timeout_s`` rank 0 waits for every shard marker,
     ``checkpoint_inflight`` async saves queued before ``save`` blocks, and
     ``checkpoint_dir`` the directory ``CheckpointCallback`` defaults
-    to."""
+    to. Diagnostics: ``timeline`` is the host timeline's path (rank 0's
+    file; a directory or a base for per-rank shards),
+    ``timeline_mark_cycles`` its cycle markers, ``timeline_all_ranks``
+    makes every rank write a shard (``<timeline>.rank<r>.json``) with a
+    wall-clock anchor, merged by ``python -m
+    horovod_tpu_torch.diagnostics merge``; ``metrics_port`` is the
+    per-worker exporter's base port (0: off; a worker binds
+    ``metrics_port + local_rank``). The other diagnostics knobs
+    (``WATCHDOG_SECONDS``, ``FLIGHT_RECORDER_SIZE``, ``AUTOPSY_DIR``) are
+    read live from the environment by ``horovod_tpu_torch.diagnostics``:
+    they must track changes across a re-init and in tests, so they bypass
+    this cached snapshot."""
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     bucket_bytes: int = 0
@@ -92,6 +103,10 @@ class Config:
     checkpoint_commit_timeout_s: float = 120.0
     checkpoint_inflight: int = 2
     checkpoint_dir: str = ""
+    timeline: str = ""
+    timeline_mark_cycles: bool = False
+    timeline_all_ranks: bool = False
+    metrics_port: int = 0
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -129,6 +144,10 @@ class Config:
             checkpoint_inflight=env_int("CHECKPOINT_INFLIGHT",
                                         d.checkpoint_inflight),
             checkpoint_dir=env_str("CHECKPOINT_DIR"),
+            timeline=env_str("TIMELINE"),
+            timeline_mark_cycles=env_bool("TIMELINE_MARK_CYCLES"),
+            timeline_all_ranks=env_bool("TIMELINE_ALL_RANKS"),
+            metrics_port=env_int("METRICS_PORT", d.metrics_port),
         )
 
 

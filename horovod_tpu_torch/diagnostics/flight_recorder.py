@@ -13,10 +13,8 @@ Design constraints:
 * **lock-cheap** — one short critical section per event (a deque append
   + a counter); no allocation beyond the event dict itself, no I/O;
 * **always dumpable** — :meth:`FlightRecorder.dump` from any thread at
-  any time.
-
-The crash hooks and the autopsy dump directory arrive with the hang
-watchdog and autopsy slice.
+  any time (the watchdog calls it mid-hang), :func:`install_crash_hooks`
+  wires an excepthook so an uncaught exception leaves a dump on disk.
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -97,9 +96,11 @@ class FlightRecorder:
             "dropped": dropped,
             "recorded": len(events),
             "dumped_at": time.time(),
-            # this rank's wall-clock offset to the coordinator, which
-            # the merged timeline maps flight evidence with (the JAX
-            # dump's field; the port measures none yet, see wall_offset)
+            # the same per-rank wall offset the timeline shards carry
+            # (diagnostics/clock.py): the merged timeline maps flight
+            # evidence onto the coordinator's clock with it, so
+            # cross-rank flight events align with shard spans instead
+            # of drifting by host clock skew
             "wall_offset_s": wall_offset(),
             "events": events,
         }
@@ -132,17 +133,29 @@ def _best_effort_rank() -> int:
         return 0
 
 
+_WALL_OFFSET = 0.0
+
+
+def set_wall_offset(seconds: float) -> None:
+    """Record this rank's estimated ``my_wall - coordinator_wall``
+    (measured once at init by :mod:`horovod_tpu_torch.diagnostics.clock`
+    and shared with the timeline shards) so flight dumps are mergeable
+    onto the coordinator's clock."""
+    global _WALL_OFFSET
+    _WALL_OFFSET = float(seconds)
+
+
 def wall_offset() -> float:
-    """``HVD_TPU_CLOCK_OFFSET_S``, else 0.0: the JAX package measures
-    ``my_wall - coordinator_wall`` at init (``diagnostics/clock.py``); the
-    port's estimate arrives with the timeline-merge slice."""
+    """The recorded offset, with ``HVD_TPU_CLOCK_OFFSET_S`` overriding
+    live (same contract as the shard anchor: tests inject known skew,
+    operators pin NTP-disciplined fleets to 0)."""
     forced = os.environ.get("HVD_TPU_CLOCK_OFFSET_S")
     if forced not in (None, ""):
         try:
             return float(forced)
         except ValueError:
             pass
-    return 0.0
+    return _WALL_OFFSET
 
 
 _RECORDER: Optional[FlightRecorder] = None
@@ -161,8 +174,73 @@ def recorder() -> FlightRecorder:
 
 def record_event(kind: str, **fields: Any) -> None:
     """Module-level convenience used by the instrumented call sites
-    (callbacks, guard, codec metrics, goodput, anomaly, profiling)."""
+    (callbacks, guard, codec metrics, goodput, anomaly, profiling,
+    checkpoint store, watchdog)."""
     try:
         recorder().record(kind, **fields)
     except Exception:
         pass  # the recorder must never take down the caller
+
+
+def crash_dump_path() -> str:
+    """Where crash hooks drop the flight dump: the autopsy directory
+    (``HVD_TPU_AUTOPSY_DIR``, default ``./hvd_autopsy`` — one contained
+    place, not loose files in the CWD), created on demand."""
+    from horovod_tpu_torch.common.config import env_str
+    base = env_str("AUTOPSY_DIR") or os.path.join(os.getcwd(),
+                                                  "hvd_autopsy")
+    try:
+        os.makedirs(base, exist_ok=True)
+    except OSError:
+        base = "."
+    return os.path.join(base, f"hvd_flight_rank{_best_effort_rank()}.json")
+
+
+_hooks_installed = False
+
+
+def install_crash_hooks() -> None:
+    """Chain excepthooks (main thread + threading) so an uncaught
+    exception dumps the flight ring to disk before the process dies;
+    idempotent.  ``HVD_TPU_FLIGHT_DUMP_ON_EXIT=1`` additionally dumps at
+    every interpreter exit (atexit), crash or not."""
+    global _hooks_installed
+    if _hooks_installed:
+        return
+    _hooks_installed = True
+
+    prev_hook = sys.excepthook
+
+    def _hook(exc_type, exc, tb):
+        try:
+            record_event("crash", error=repr(exc))
+            recorder().dump_to(crash_dump_path())
+        except Exception:
+            pass
+        prev_hook(exc_type, exc, tb)
+
+    sys.excepthook = _hook
+
+    prev_thook = threading.excepthook
+
+    def _thook(args):
+        try:
+            record_event("thread_crash", error=repr(args.exc_value),
+                         thread=getattr(args.thread, "name", "?"))
+            recorder().dump_to(crash_dump_path())
+        except Exception:
+            pass
+        prev_thook(args)
+
+    threading.excepthook = _thook
+
+    if os.environ.get("HVD_TPU_FLIGHT_DUMP_ON_EXIT", "") not in ("", "0"):
+        import atexit
+
+        def _atexit_dump():
+            try:
+                recorder().dump_to(crash_dump_path())
+            except Exception:
+                pass
+
+        atexit.register(_atexit_dump)

@@ -12,10 +12,13 @@ Mirrors ``horovod_tpu/metrics/``:
 * :mod:`~horovod_tpu_torch.metrics.goodput` — the closed-books wall-clock
   ledger;
 * :mod:`~horovod_tpu_torch.metrics.mfu` — the card's peak FLOPs and a
-  step's FLOP count.
+  step's FLOP count;
+* :mod:`~horovod_tpu_torch.metrics.exporter` — the per-worker HTTP
+  exporter (``/metrics``, ``/healthz``, ``/readyz``, ``/debug/*``);
+* :mod:`~horovod_tpu_torch.metrics.fleet` — the fan-in tree behind
+  rank 0's ``/metrics/fleet``.
 
-The HTTP exporter, the fleet fan-in tree and the ``history``/``top`` CLI
-arrive with the next observability slice (ROADMAP).
+CLI: ``python -m horovod_tpu_torch.metrics top|history``.
 """
 
 from horovod_tpu_torch.metrics.registry import (  # noqa: F401
@@ -34,3 +37,5 @@ from horovod_tpu_torch.metrics.timeseries import (  # noqa: F401
     read_series,
 )
 from horovod_tpu_torch.metrics.anomaly import AnomalyEngine  # noqa: F401
+from horovod_tpu_torch.metrics.exporter import MetricsExporter  # noqa: F401
+from horovod_tpu_torch.metrics.fleet import FleetAggregator  # noqa: F401

@@ -31,9 +31,10 @@ roll via :func:`observe_serving_window`):
 
 External detectors (the ``hbm_growth`` sampler of
 :mod:`horovod_tpu_torch.profiling.memory`, the ``recompile_storm`` watch)
-report through :func:`report_finding`. The JAX engine's
-``persistent_straggler`` detector is fed by the fleet aggregator; it
-arrives with the port's fleet aggregator (ROADMAP queue 1 item 5).
+report through :func:`report_finding`. A fifth training detector,
+``persistent_straggler``, charges the SAME rank as the fleet's slowest
+for N consecutive aggregation windows (fed by the fleet aggregator on
+rank 0, :mod:`horovod_tpu_torch.metrics.fleet`).
 
 Every finding lands three ways: a ``hvd_anomaly_total{kind=...}``
 counter, an ``anomaly`` flight-recorder event, and the engine's bounded
@@ -58,7 +59,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from horovod_tpu_torch.metrics.registry import Registry, default_registry
 
@@ -249,6 +250,12 @@ class AnomalyEngine:
         self._kv_share = _StageShareDetector(
             "kv_thrash", ("page_wait",),
             _envf("SERVING_KV_THRASH_SHARE", 0.25), share_windows)
+        self._straggler_windows = max(
+            2, _envi("ANOMALY_STRAGGLER_WINDOWS", 3))
+        self._straggler_ratio = _envf("ANOMALY_STRAGGLER_RATIO", 1.3)
+        self._straggler_rank: Optional[int] = None
+        self._straggler_run = 0
+        self._straggler_active = False
         self.findings: List[dict] = []
 
     # -- feeds ---------------------------------------------------------------
@@ -287,6 +294,47 @@ class AnomalyEngine:
             if dominating:
                 f["category"] = dominating
             return [self._flag(f)]
+
+    def observe_fleet(self, per_rank: Dict[Any, dict]) -> List[dict]:
+        """One fleet aggregation window: ``per_rank`` maps rank to a
+        breakdown entry carrying ``win_step_time`` (the fleet
+        aggregator's per-push windowed mean step time).  Flags when the
+        same rank stays the slowest — and meaningfully slower than the
+        fleet mean — for N consecutive windows."""
+        times = {int(r): e["win_step_time"] for r, e in per_rank.items()
+                 if isinstance(e, dict)
+                 and isinstance(e.get("win_step_time"), (int, float))}
+        with self._lock:
+            if len(times) < 2:
+                self._straggler_run = 0
+                self._straggler_rank = None
+                return []
+            worst = max(times, key=lambda r: times[r])
+            mean = sum(times.values()) / len(times)
+            others = [t for r, t in times.items() if r != worst]
+            peer_mean = sum(others) / len(others)
+            charged = peer_mean > 0 and \
+                times[worst] > peer_mean * self._straggler_ratio
+            if not charged:
+                self._straggler_run = 0
+                self._straggler_rank = None
+                self._straggler_active = False
+                return []
+            if worst == self._straggler_rank:
+                self._straggler_run += 1
+            else:
+                self._straggler_rank = worst
+                self._straggler_run = 1
+                self._straggler_active = False
+            if self._straggler_active or \
+                    self._straggler_run < self._straggler_windows:
+                return []
+            self._straggler_active = True
+            return [self._flag({
+                "kind": "persistent_straggler", "rank": worst,
+                "win_step_time": round(times[worst], 6),
+                "fleet_mean": round(mean, 6),
+                "windows": self._straggler_run})]
 
     def observe_serving(self, doc: dict) -> List[dict]:
         """One closed serving ``LatencyWindow`` doc (carrying the
@@ -401,6 +449,9 @@ class AnomalyEngine:
             for det in (self._queue_share, self._kv_share):
                 det._streak = 0
                 det._active = False
+            self._straggler_rank = None
+            self._straggler_run = 0
+            self._straggler_active = False
 
 
 _ENGINE: Optional[AnomalyEngine] = None

@@ -440,6 +440,20 @@ def snapshot(flush_open: bool = False) -> Optional[Dict[str, Any]]:
         return None
 
 
+def fleet_summary() -> Optional[Dict[str, Any]]:
+    """Small per-rank doc for the fleet fan-in tree: the last closed
+    window's productive fraction + dominating loss category."""
+    led = _LEDGER
+    if led is None:
+        return None
+    rec = led.last_window()
+    if rec is None:
+        return None
+    return {"fraction": round(rec["fraction"], 4),
+            "dominating": GoodputLedger.dominating(rec),
+            "wall_s": round(rec["wall_s"], 4)}
+
+
 def reset() -> None:
     """Tests: drop the singleton (a fresh ledger re-reads the knobs)."""
     global _LEDGER

@@ -12,10 +12,10 @@ steps, with two drivers:
   N steps of training;
 * **automatic** — the anomaly engine's findings
   (:mod:`horovod_tpu_torch.metrics.anomaly`) trigger a capture of the next
-  ``HVD_TPU_PROFILE_STEPS`` steps.
-
-(The JAX package's third driver, ``GET /debug/profile`` on the worker
-exporter, arrives with the exporter.)
+  ``HVD_TPU_PROFILE_STEPS`` steps;
+* **on demand** — ``GET /debug/profile?steps=N`` on the worker exporter
+  (:mod:`horovod_tpu_torch.metrics.exporter`) arms a capture from the
+  HTTP thread; the window itself opens on the training thread.
 
 A capture is one ``torch.profiler.profile`` with the CPU activity and, when
 the process has a card, the CUDA one (CUPTI): opened at ``on_step_begin``,

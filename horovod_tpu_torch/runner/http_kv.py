@@ -1,4 +1,5 @@
-"""The hardened HTTP server of the port's HTTP planes.
+"""The hardened HTTP server of the port's HTTP planes (the serving
+replica and front ends, the metrics exporter).
 
 Only :class:`ThreadedHTTPServer` is ported so far, a copy of
 ``horovod_tpu/runner/http_kv.py:81``: the bounded handler pool (overflow
@@ -19,8 +20,8 @@ from horovod_tpu_torch.common.safe_metrics import safe_inc as _metric
 
 class ThreadedHTTPServer(ThreadingHTTPServer):
     """Shared server base for the port's tiny HTTP planes (the serving
-    replica and front ends of :mod:`horovod_tpu_torch.serving`; the KV
-    store and the metrics exporter when they are ported): threaded,
+    replica and front ends of :mod:`horovod_tpu_torch.serving`, the
+    metrics exporter; the KV store when it is ported): threaded,
     daemonized, with a deep accept backlog — many agents poll
     concurrently and the socketserver default backlog of 5 resets
     connections under bursts on slow machines.

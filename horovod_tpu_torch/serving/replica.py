@@ -925,9 +925,13 @@ def main(argv=None) -> int:
                         "instead of chasing the latest commit")
     args = p.parse_args(argv)
 
-    # The JAX replica arms its chaos plan here (horovod_tpu/serving/
-    # replica.py:893, ``chaos.install()``) and its flight recorder's crash
-    # hooks: the port has neither plane yet (ROADMAP queue 1 items 5, 7).
+    # an uncaught exception leaves a flight dump in the autopsy
+    # directory (JAX serving/replica.py:900-902); the JAX replica also
+    # arms its chaos plan here (``chaos.install()``), which arrives with
+    # the port's control plane (ROADMAP queue 1 item 7)
+    from horovod_tpu_torch.diagnostics.flight_recorder import \
+        install_crash_hooks
+    install_crash_hooks()
     gen_model = None
     if args.flagship:
         from horovod_tpu_torch.serving.generate import flagship_gen_setup

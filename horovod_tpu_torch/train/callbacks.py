@@ -7,12 +7,12 @@ Mirrors ``horovod_tpu/train/callbacks.py`` (reference:
 ``on_train_begin`` / ``on_step_end`` / ``on_epoch_end`` / ``on_train_end``
 or used directly. ``StepTimer`` and ``TelemetryCallback`` carry the JAX
 callbacks' metric names, flight events and seams (profiling, goodput, time
-series, anomaly engine), in the same order; ``CheckpointCallback`` saves
-through the native sharded store. Three seams of the JAX callbacks wait
-for slices that are not ported yet (ROADMAP queue 1): the hang watchdog
-that ``TelemetryCallback`` arms and ``StepTimer.end_step`` feeds (with the
-autopsy), the elastic re-mesh timeline's ``note_step_end`` and the chaos
-``step_tick`` (with the control plane).
+series, anomaly engine, the hang watchdog that ``TelemetryCallback`` arms
+and ``StepTimer.end_step`` feeds), in the same order;
+``CheckpointCallback`` saves through the native sharded store. Two seams
+of the JAX callbacks wait for the control plane (ROADMAP queue 1 item 7):
+the elastic re-mesh timeline's ``note_step_end`` and the chaos
+``step_tick``.
 
 On the card a step's kernels run after the host has queued them: end a
 step once its results are read (``float(loss)``, as a loop that logs its
@@ -168,10 +168,12 @@ class StepTimer:
         self.step_time.observe(dt)
         self.steps.inc()
         step_no = int(self.steps.value)
+        # a completed step IS forward progress: feed the hang watchdog
+        # and the flight recorder (JAX train/callbacks.py:146-151)
         from horovod_tpu_torch.diagnostics.flight_recorder import record_event
+        from horovod_tpu_torch.diagnostics.watchdog import notify_progress
         record_event("step_end", step=step_no, seconds=round(dt, 6))
-        # (the JAX timer also feeds the hang watchdog here; the port's
-        # watchdog arrives with the autopsy slice)
+        notify_progress(step_no)
         # step-aligned history: the bounded ring (always) + the
         # HVD_TPU_OBS_DIR JSONL (when set)
         from horovod_tpu_torch.metrics import timeseries
@@ -253,8 +255,10 @@ class TelemetryCallback:
     of it, the anomaly engine can fire captures later in the run
     (``HVD_TPU_PROFILE_ON_ANOMALY``).
 
-    (The JAX callback also arms the hang watchdog here; the port's arrives
-    with the autopsy slice.)
+    Creating the callback also arms the process-wide hang watchdog
+    (``HVD_TPU_WATCHDOG_SECONDS``, default 600; 0 disarms): if no step
+    completes for that long, an autopsy bundle is written
+    (:mod:`horovod_tpu_torch.diagnostics.autopsy`).
     """
 
     def __init__(self, units_per_step: float = 0.0,
@@ -273,6 +277,14 @@ class TelemetryCallback:
         self.flops_source: Optional[str] = None
         self._log_every = log_every_n_steps
         self._steps = 0
+        # armed-by-default (JAX train/callbacks.py:261-262): a training
+        # loop with telemetry gets hang autopsies for free (None when
+        # WATCHDOG_SECONDS=0). Only for an INITIALIZED process: a
+        # callback constructed without init (unit tests) has no world to
+        # autopsy, and a leaked 600s daemon in a long pytest process
+        # would eventually fire mid-suite.
+        from horovod_tpu_torch.diagnostics.watchdog import ensure_watchdog
+        self.watchdog = ensure_watchdog() if is_initialized() else None
         # online anomaly engine (HVD_TPU_ANOMALY=0 disables): every
         # completed step feeds the drift detectors — a degradation is
         # flagged as an hvd_anomaly_total{kind} counter + flight event
@@ -350,7 +362,13 @@ class TelemetryCallback:
         return logs
 
     def on_train_end(self, *args, **kwargs) -> None:
-        """(The JAX callback stands the hang watchdog down here.)"""
+        """Stand down the hang watchdog (JAX train/callbacks.py:337):
+        after the last step, a long eval/export phase with no step
+        completions is legitimate, not a hang (the watchdog is
+        suspended, not dropped — a later ``init`` or ``ensure_watchdog``
+        re-arms it)."""
+        from horovod_tpu_torch.diagnostics import watchdog as _wd
+        _wd.suspend()
 
 
 class CheckpointCallback:

@@ -871,3 +871,141 @@ def test_flagship_engine_matches_card_oracle(dev):
         lone = eng.submit(f"l{i}", r.prompt, r.max_new)
         _gen_done(eng, [lone])
         assert lone.tokens == r.tokens
+
+
+def test_exporter_serves_metrics_during_a_card_training_run(dev,
+                                                            monkeypatch):
+    """``init`` on an NCCL world of one starts the exporter; a scraper
+    thread reads ``/metrics`` while flagship steps (one layer) run on the
+    card, a scrape between steps counts each step, and the last scrape
+    counts every step."""
+    import dataclasses
+    import threading
+    import time
+    import urllib.request
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.basics import _state
+    from horovod_tpu_torch.diagnostics import watchdog
+    from horovod_tpu_torch.entry import _flagship_cfg
+    from horovod_tpu_torch.metrics.__main__ import parse_prometheus
+    from horovod_tpu_torch.metrics.registry import default_registry
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          make_train_step)
+    from torch_port_worker import reserve_ports
+    port, held = reserve_ports(1)
+    monkeypatch.setenv("HVD_TPU_METRICS_PORT", str(port))
+    monkeypatch.setenv("HVD_TPU_WATCHDOG_SECONDS", "60")
+    default_registry().clear()
+    watchdog.reset()
+    hvd.shutdown()
+    hvd.init()
+    held[0].close()
+    scrapes, stop = [], threading.Event()
+
+    def scrape():
+        while not stop.wait(0.05):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                scrapes.append(parse_prometheus(r.read().decode()))
+
+    try:
+        assert _state.metrics_exporter.port == port
+        cfg = dataclasses.replace(_flagship_cfg(), n_layers=1)
+        model = Transformer(cfg)
+        opt = init_opt_state(adamw, model)
+        step = make_train_step(cfg)
+        g = torch.Generator().manual_seed(0)
+        tok = torch.randint(0, cfg.vocab_size, (2, 256), generator=g).to(dev)
+        tgt = torch.randint(0, cfg.vocab_size, (2, 256), generator=g).to(dev)
+        cb = hvd.TelemetryCallback(units_per_step=tok.numel(),
+                                   unit="tokens")
+        assert cb.watchdog is not None and cb.watchdog.armed
+        before = attention.flash_attn_fwd_cuda.launches
+        t = threading.Thread(target=scrape, daemon=True)
+        t.start()
+        seen = []
+        for i in range(6):
+            cb.on_step_begin()
+            float(step(model, opt, tok, tgt)[2])
+            cb.on_step_end()
+            # the scraper, not the step, sets the pace: wait for a scrape
+            # that counts this step before taking the next one
+            deadline = time.monotonic() + 10
+            while (not scrapes or scrapes[-1].get("hvd_steps_total") != i + 1
+                   ) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            seen.append(scrapes[-1].get("hvd_steps_total") if scrapes
+                        else None)
+        stop.set()
+        t.join(timeout=10)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            last = parse_prometheus(r.read().decode())
+        assert attention.flash_attn_fwd_cuda.launches - before == 6
+        assert seen == [1, 2, 3, 4, 5, 6]
+        assert last["hvd_steps_total"] == 6
+        assert last["hvd_step_time_seconds_count"] == 6
+        assert cb.watchdog.trigger_count == 0
+        cb.on_train_end()
+    finally:
+        stop.set()
+        hvd.shutdown()
+        watchdog.reset()
+
+
+def test_watchdog_fires_while_blocked_in_cuda_synchronize(dev, tmp_path):
+    """The main thread waits in ``torch.cuda.synchronize()`` behind a
+    ``torch.cuda._sleep`` spin of about 3 s: the watchdog (0.5 s) fires
+    once and writes its bundle, and ``/debug/stacks`` answers from the
+    exporter's thread meanwhile, naming the blocked frame."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from horovod_tpu_torch.diagnostics.watchdog import Watchdog
+    from horovod_tpu_torch.metrics.exporter import MetricsExporter
+    from horovod_tpu_torch.metrics.registry import Registry
+    exp = MetricsExporter(registry=Registry(), port=0)
+    exp.start()
+    wd = Watchdog(timeout_s=0.5, autopsy_dir=str(tmp_path / "bundle"),
+                  check_interval_s=0.1)
+    got = {}
+
+    def fetch():
+        time.sleep(1.5)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{exp.port}/debug/stacks",
+                timeout=10) as r:
+            got["stacks"] = r.read().decode()
+        got["seconds"] = time.perf_counter() - t0
+        got["at"] = time.perf_counter()
+
+    try:
+        torch.cuda.synchronize()
+        wd.start()
+        t = threading.Thread(target=fetch, daemon=True)
+        t.start()
+        # ~1 s a call at the card's clock (H100: about 1.7-2 GHz)
+        for _ in range(3):
+            torch.cuda._sleep(2_000_000_000)
+        torch.cuda.synchronize()
+        done = time.perf_counter()
+        t.join(timeout=10)
+        wd.stop()
+        assert got["at"] < done, "stacks answered only after the sync"
+        assert "test_watchdog_fires_while_blocked_in_cuda_synchronize" in \
+            got["stacks"]
+        assert wd.trigger_count == 1
+        bundle = tmp_path / "bundle"
+        files = set(os.listdir(bundle))
+        assert {"stacks_rank0.txt", "flight_rank0.json",
+                "summary_rank0.json"} <= files
+        with open(bundle / "flight_rank0.json") as f:
+            kinds = [e["kind"] for e in json.load(f)["events"]]
+        assert "watchdog_trigger" in kinds
+    finally:
+        wd.stop()
+        exp.stop()

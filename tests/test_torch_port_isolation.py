@@ -45,6 +45,26 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# the observability modules of the exporter, watchdog and timeline slice
+OBSERVABILITY = ("common.timeline", "diagnostics.clock",
+                 "diagnostics.merge", "diagnostics.watchdog",
+                 "diagnostics.autopsy", "diagnostics.__main__",
+                 "metrics.exporter", "metrics.fleet", "metrics.__main__",
+                 "tracing.reader")
+
+
+def test_observability_modules_are_covered():
+    """Every module of the exporter, watchdog and timeline slice is a
+    source the checks above read and a module the import walk loads."""
+    import pkgutil
+    walked = {m.name for m in pkgutil.walk_packages(
+        horovod_tpu_torch.__path__, "horovod_tpu_torch.")}
+    srcs = set(_port_sources())
+    for mod in OBSERVABILITY:
+        assert "horovod_tpu_torch." + mod in walked, mod
+        assert os.path.join(PKG, *mod.split(".")) + ".py" in srcs, mod
+
+
 def test_sources_import_nothing_of_jax():
     srcs = _port_sources()
     assert len(srcs) >= 9 and os.path.exists(srcs[0])

@@ -21,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORT_TAKEN = ("eaddrinuse", "address already in use")
 
 
-def _reserve_port() -> socket.socket:
+def reserve_port() -> socket.socket:
     """A free port, held: a socket bound to it with ``SO_REUSEADDR`` and
     not listening, kept open while the world runs. Rank 0's TCP store
     (``SO_REUSEADDR`` too) can still bind and listen on it, while the
@@ -31,6 +31,29 @@ def _reserve_port() -> socket.socket:
     s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     s.bind(("127.0.0.1", 0))
     return s
+
+
+def reserve_ports(n: int):
+    """``n`` consecutive free ports, held as :func:`reserve_port` holds
+    one (bound with ``SO_REUSEADDR``, not listening) until the caller
+    closes the returned sockets: a world's exporters bind ``base +
+    local_rank`` over them, and no other socket of the machine takes one
+    in between. Returns ``(base, sockets)``."""
+    for _ in range(100):
+        first = reserve_port()
+        base = first.getsockname()[1]
+        socks = [first]
+        try:
+            for i in range(1, n):
+                s = socket.socket()
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                socks.append(s)
+                s.bind(("127.0.0.1", base + i))
+            return base, socks
+        except (OSError, OverflowError):
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no block of {n} free ports")
 
 
 def spawn_world(script: str, group: str, n: int, out_dir, extra_env=None,
@@ -51,7 +74,7 @@ def spawn_world(script: str, group: str, n: int, out_dir, extra_env=None,
 
 
 def _spawn(group, n, out_dir, extra_env, timeout, script):
-    reserved = _reserve_port()
+    reserved = reserve_port()
     port = reserved.getsockname()[1]
     procs, logs = [], []
     t0 = time.monotonic()
