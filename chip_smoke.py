@@ -304,6 +304,38 @@ in the last), each phase's launch counts in ``obs_launches``:
   bit-identical parameters. It prints the seconds from the trigger to a
   complete bundle and the bundle's bytes.
 
+The launcher and elastic slice adds two phases, both on the flagship at
+full width and depth (host, socket and process code: no kernel of its own;
+flash_attn_fwd and xent_fwd run in every rank's step), each phase's launch
+counts in ``hvdrun_launches`` and ``elastic_launches``:
+
+* ``[hvdrun]``: ``python -m horovod_tpu_torch.runner.launch -np 1 -H
+  localhost:1 python tests/torch_port_elastic_worker.py static``, an NCCL
+  world of one taking TRAIN_STEPS AdamW steps of ``make_train_step(cfg,
+  mesh)`` on ``entry()``'s batch. Checks: the launcher's identity reached
+  the worker (rank 0, size 1, the rendezvous at 127.0.0.1 on a port, no
+  elastic generation: a static launch); its losses equal ``[train]``'s to
+  the bit when ``[train]`` repeated in this process is bit-equal to
+  itself, else within DP_LOSS_TOL (the line says which); the kernels
+  launched 4 and 1 times a step; a worker's exit code 3 comes back
+  through ``hvdrun``.
+* ``[elastic_recover]``: the port's ``ElasticDriver`` over ``FixedHosts``
+  of three slots (min 2, max 3, a journal directory) runs three gloo ranks
+  of the elastic worker on ``cuda:0`` (``--device cuda:0``: the ranks pick
+  the card themselves), ELASTIC_ROWS rows each a step from an
+  ``ElasticSampler`` under ``elastic.run`` with a ``TorchState``, a commit
+  a step, gloo's timeout ELASTIC_GLOO_TIMEOUT_S. After its commit of
+  step ELASTIC_KILL[1], rank ELASTIC_KILL[0] calls ``os._exit(1)``. Checks:
+  the survivors keep their PIDs, one replacement boots, the world ends at
+  3; each survivor's ``hvd_remesh_total`` >= 1 with all six phases, the
+  replacement's none; the three parameter digests equal after the last
+  step; the first step of the healed world against one process running
+  from the committed state of that step on the three ranks' rows
+  concatenated (loss within DP_LOSS_TOL, every gradient within
+  DP_GRAD_TOL rel L2); the seconds from the kill to the healed world's
+  first completed step, with every phase's seconds; the journal replays
+  to the driver's final state.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -487,6 +519,14 @@ OBS_FLEET_PUSH_S = 0.5
 OBS_HANG_WATCHDOG_S = 5   # [obs_hang_autopsy]
 OBS_HANG_STALL = 3        # rank 1 sleeps this many watchdog timeouts
 OBS_HANG_STEPS = 3        # the stall comes before the last step's sync
+HVDRUN_TIMEOUT_S = 300    # [hvdrun]: each launcher call
+ELASTIC_STEPS = 5         # [elastic_recover]: steps of the run
+ELASTIC_KILL = (2, 3)     # rank 2 exits after its commit of step 3
+ELASTIC_ROWS = 8          # rows a rank takes a step (the flagship's B)
+ELASTIC_GLOO_TIMEOUT_S = 60   # the elastic world's collective timeout
+ELASTIC_TIMEOUT_S = 420   # the whole driver run
+REMESH_PHASES = ("failure_detect", "drain", "rendezvous", "rebuild",
+                 "restore", "first_step")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -4581,6 +4621,178 @@ def phase_obs_hang(torch, card: str) -> dict:
     return res[0]["launches"]
 
 
+def phase_hvdrun(torch, cfg, init_sd, batch, train_losses) -> dict:
+    """[hvdrun]: the launcher runs the static trainer as an NCCL world of
+    one. Returns the worker's launches."""
+    from horovod_tpu_torch.models import (Transformer, adamw, init_opt_state,
+                                          make_train_step)
+    # is [train] bit-repeatable? its steps once more, in this process
+    model = Transformer(cfg)
+    model.load_state_dict(init_sd)
+    opt = init_opt_state(adamw, model)
+    step = make_train_step(cfg)
+    again = [float(step(model, opt, *batch)[2]) for _ in range(TRAIN_STEPS)]
+    del model, opt, step
+    repeatable = again == train_losses
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    launch = [sys.executable, "-m", "horovod_tpu_torch.runner.launch"]
+    with tempfile.TemporaryDirectory(prefix="hvdrun_") as out:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            launch + ["-np", "1", "-H", "localhost:1", sys.executable,
+                      os.path.join(repo, "tests",
+                                   "torch_port_elastic_worker.py"),
+                      "static", "--out", out, "--steps", str(TRAIN_STEPS)],
+            cwd=repo, env=env, capture_output=True, text=True,
+            timeout=HVDRUN_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        check(r.returncode == 0, f"hvdrun: the launch exited {r.returncode}"
+                                 f":\n{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        with open(os.path.join(out, "static.rank0.json")) as f:
+            res = json.load(f)
+    fail = subprocess.run(
+        launch + ["-np", "1", sys.executable, "-c", "import sys; sys.exit(3)"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=120)
+    losses = res["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, train_losses))
+    held = "bit" if repeatable else f"rel {DP_LOSS_TOL}"
+    n_layers = cfg.n_layers
+    want = {"flash_attention_fwd": n_layers * TRAIN_STEPS,
+            "xent_fwd": TRAIN_STEPS}
+    say("hvdrun", seconds=secs, rank=res["rank"], size=res["size"],
+        rendezvous=f"{res['rendezvous_addr']}:{res['rendezvous_port']}",
+        generation=res["generation"], backend=res["backend"],
+        losses=",".join(f"{x:.6f}" for x in losses),
+        train_losses=",".join(f"{x:.6f}" for x in train_losses),
+        train_repeatable=repeatable, held_to=held, max_rel=rel,
+        launches=",".join(f"{k}:{v}" for k, v in res["launches"].items()),
+        failing_worker_rc=fail.returncode)
+    check((res["rank"], res["size"], res["hvd_rank"], res["hvd_size"])
+          == ("0", "1", 0, 1), f"hvdrun: identity {res}")
+    check(res["rendezvous_addr"] == res["gloo_rendezvous_addr"]
+          == "127.0.0.1" and int(res["rendezvous_port"]) > 0,
+          f"hvdrun: rendezvous {res}")
+    check(res["generation"] is None and res["backend"] == "nccl",
+          f"hvdrun: generation/backend {res}")
+    check(losses == train_losses if repeatable else rel <= DP_LOSS_TOL,
+          f"hvdrun: losses {losses} vs [train] {train_losses} ({held})")
+    check(res["launches"] == want,
+          f"hvdrun: launches {res['launches']}, expected {want}")
+    check(fail.returncode == 3,
+          f"hvdrun: a worker's exit 3 came back as {fail.returncode}")
+    return res["launches"]
+
+
+def phase_elastic_recover(torch, cfg, card: str) -> dict:
+    """[elastic_recover]: three gloo ranks under the port's driver lose
+    one and heal in place. Returns each final rank's launches."""
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.models import Transformer, adamw, make_train_step
+    from horovod_tpu_torch.runner.elastic import journal
+    from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
+    from horovod_tpu_torch.runner.hosts import HostInfo
+    kill_rank, kill_step = ELASTIC_KILL
+    with tempfile.TemporaryDirectory(prefix="elastic_") as out:
+        cmd = worker.command(out, "--device", "cuda:0", "--steps",
+                             ELASTIC_STEPS, "--rows", ELASTIC_ROWS,
+                             "--kill", f"{kill_rank}:{kill_step}",
+                             "--save-commit", kill_step)
+        rc, driver, secs = worker.run_driver(
+            FixedHosts([HostInfo("localhost", 3)]), cmd, out, min_np=2,
+            max_np=3, reset_limit=3, timeout=ELASTIC_TIMEOUT_S,
+            env={"HVD_TPU_GLOO_TIMEOUT_SECONDS":
+                 str(ELASTIC_GLOO_TIMEOUT_S)})
+        evs = worker.events(out)
+        check(rc == 0, f"elastic_recover: the driver returned {rc}: {evs}")
+        jstate = journal.load(os.path.join(out, "journal",
+                                           journal.JOURNAL_NAME))
+        snap = torch.load(os.path.join(out, "commit.pt"), map_location="cuda:0",
+                          weights_only=False)
+        healed_grads = torch.load(os.path.join(out, "grads_healed.rank0.pt"))
+    boots = [e for e in evs if e["kind"] == "boot"]
+    dones = {e["rank"]: e for e in evs if e["kind"] == "done"}
+    steps = [e for e in evs if e["kind"] == "step"]
+    kill = [e for e in evs if e["kind"] == "kill"]
+    check(len(kill) == 1 and kill[0]["rank"] == kill_rank,
+          f"elastic_recover: kills {kill}")
+    check(sorted(b["rank"] for b in boots) == [0, 1, 2, kill_rank],
+          f"elastic_recover: boots {boots}")
+    first_pid = {b["rank"]: b["pid"] for b in boots}
+    survivors = [r for r in range(3) if r != kill_rank]
+    replacement = [b for b in boots if b["rank"] == kill_rank][-1]
+    check(sorted(dones) == [0, 1, 2] and all(
+        d["size"] == 3 and d["step"] == ELASTIC_STEPS
+        for d in dones.values()), f"elastic_recover: ends {dones}")
+    for r in survivors:
+        check(dones[r]["pid"] == first_pid[r],
+              f"elastic_recover: rank {r} was restarted")
+        rm = dones[r]["remesh"]
+        check(rm["total"] >= 1 and set(rm["phases"]) >= set(REMESH_PHASES),
+              f"elastic_recover: rank {r}'s re-mesh record {rm}")
+    check(dones[kill_rank]["pid"] == replacement["pid"]
+          and dones[kill_rank]["remesh"] == {"total": 0, "phases": {}},
+          f"elastic_recover: the replacement {dones[kill_rank]}")
+    digests = {d["digest"] for d in dones.values()}
+    check(len(digests) == 1, f"elastic_recover: replicas differ {digests}")
+    # the healed world's first step against one process from the commit
+    healed = [e for e in steps if e["step"] == kill_step + 1]
+    check(len(healed) == 3 and len({e["loss"] for e in healed}) == 1,
+          f"elastic_recover: first healed step {healed}")
+    rows = healed[0]["rows"]
+    n = 3 * ELASTIC_ROWS * ELASTIC_STEPS
+    tokens, targets = worker.corpus(cfg, n)
+    dev = torch.device("cuda", 0)
+    model = Transformer(cfg)
+    model.load_state_dict(snap["torch_snaps"]["model"])
+    opt = adamw(model.parameters())
+    opt.load_state_dict(snap["torch_snaps"]["optimizer"])
+    ref_loss = float(make_train_step(cfg)(
+        model, opt, torch.from_numpy(tokens[rows]).to(dev),
+        torch.from_numpy(targets[rows]).to(dev))[2])
+    ref_grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+    del model, opt, snap
+    errs = grad_errors(healed_grads, ref_grads)
+    worst = max(errs, key=lambda k: errs[k][0])
+    loss_rel = abs(healed[0]["loss"] - ref_loss) / abs(ref_loss)
+    t_first = min(e["t"] for e in healed)
+    phases = {r: dones[r]["remesh"]["phases"] for r in survivors}
+    launches = {r: dones[r]["launches"] for r in sorted(dones)}
+    say("elastic_recover", seconds=secs, card=card, world=3,
+        kill=f"rank {kill_rank} after step {kill_step}",
+        kill_to_first_healed_step_s=t_first - kill[0]["t"],
+        **{f"rank{r}_{ph}_s": v for r, ps in phases.items()
+           for ph, v in sorted(ps.items())},
+        healed_loss=healed[0]["loss"], one_process_loss=ref_loss,
+        loss_rel=loss_rel, tol_loss=DP_LOSS_TOL, worst_grad=worst,
+        grad_rel_l2=errs[worst][0], tol_grad=DP_GRAD_TOL,
+        losses=",".join(f"{e['step']}:{e['loss']:.6f}" for e in steps
+                        if e["rank"] == 0),
+        launches=";".join(f"{r}:{v['flash_attention_fwd']},"
+                          f"{v['xent_fwd']}" for r, v in launches.items()),
+        journal_world_gen=jstate.world_gen,
+        final_generation=driver.final_generation)
+    check(loss_rel <= DP_LOSS_TOL, f"elastic_recover: healed loss "
+                                   f"{healed[0]['loss']} vs {ref_loss}")
+    check(errs[worst][0] <= DP_GRAD_TOL, f"elastic_recover: gradient of "
+                                         f"{worst} {errs[worst][0]} off")
+    exits = {k: r["state"] for k, r in jstate.exits.items()}
+    check(jstate.clean_exit == 0 and jstate.unknown == 0
+          and jstate.world_gen == driver.final_generation
+          and jstate.reset_count == driver._registry.reset_count
+          and not jstate.live_workers() and jstate.blocklist == {}
+          and exits.get((0, kill_rank)) == "FAILURE"
+          and jstate.world["doc"]["size"] == 3,
+          f"elastic_recover: the journal's replay {jstate.__dict__} does "
+          f"not match the driver")
+    for r, got in launches.items():
+        check(got["flash_attention_fwd"] > 0 and got["xent_fwd"] > 0,
+              f"elastic_recover: a kernel did not run on rank {r}: {got}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4840,11 +5052,21 @@ def main() -> int:
           f"quantize or dequantize did not run in [obs_hang_autopsy]: "
           f"{obs_launches['obs_hang_autopsy']}")
 
+    # -- the launcher and elastic training: hvdrun's NCCL world of one, and
+    # three gloo ranks that lose one and heal in place
+    hvdrun_launches = phase_hvdrun(torch, model.cfg, init_sd,
+                                   (tokens, targets), losses)
+    elastic_launches = phase_elastic_recover(torch, model.cfg, card)
+    for k in kernels:
+        k["hvdrun_launches"] = hvdrun_launches.get(k["name"], 0)
+        k["elastic_launches"] = {r: got.get(k["name"], 0)
+                                 for r, got in elastic_launches.items()}
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
             "pp_launches", "ckpt_launches", "serve_launches",
-            "obs_launches")
+            "obs_launches", "hvdrun_launches", "elastic_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

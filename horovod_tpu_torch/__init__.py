@@ -38,6 +38,12 @@ position from ``data.ShardedDataset``'s cursor; ``ReplicaCanary`` and
 a continuous-batching decode engine over a paged KV pool (each step
 function captured once in a CUDA graph), replicas with hot swap from the
 checkpoint store, a hedging router and a healing fleet.
+
+``python -m horovod_tpu_torch.runner.launch`` (``hvdrun``) launches a job,
+static or under the elastic driver (``runner/elastic/``: discovery, the
+write-ahead journal, in-place recovery, growth and shrink); a worker's
+``elastic.run`` loop with a ``torch.elastic.TorchState`` re-meshes in
+place when a peer dies or the world changes.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
@@ -121,3 +127,5 @@ from horovod_tpu_torch.checkpoint import (  # noqa: F401
 )
 from horovod_tpu_torch.train.checkpoint import Checkpointer  # noqa: F401
 from horovod_tpu_torch.train import callbacks  # noqa: F401
+# Elastic worker API (reference: horovod.elastic)
+from horovod_tpu_torch import elastic  # noqa: F401

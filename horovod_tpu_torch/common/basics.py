@@ -25,6 +25,18 @@ offset measured over the new group), the flight recorder's crash hooks
 and ``init`` event, the hang watchdog's re-arm, and the per-worker
 exporter (``HVD_TPU_METRICS_PORT``) with its fleet tree node.
 ``shutdown`` stands them down before the group is destroyed.
+
+``shutdown(force=False)`` ends a world as the JAX package's negotiated
+shutdown does: every rank meets at a barrier, bounded by
+``HVD_TPU_SHUTDOWN_GRACE_S``, before any rank destroys the group, so rank
+0 (whose process hosts the rendezvous store) cannot tear the store down
+while a peer still needs it. ``force=True`` (the elastic path after a
+peer died, where no barrier can complete) tears the group down at once;
+under NCCL it aborts the communicators, so a dead peer cannot hang the
+survivor in ``destroy_process_group``. Inside an elastic re-mesh
+(``horovod_tpu_torch.elastic.remesh``) the group's creation is the
+episode's ``rendezvous`` phase and the rest of ``init`` its ``rebuild``
+phase, as in the JAX ``init``.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import atexit
 import datetime
 import os
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -129,7 +142,10 @@ def init() -> None:
                 f"a launched world of {size} processes needs the rendezvous: "
                 f"set HOROVOD_GLOO_RENDEZVOUS_ADDR and _PORT (or "
                 f"HVD_TPU_RENDEZVOUS_ADDR and _PORT) to rank 0's address")
-        dist.init_process_group(**kw)
+        from horovod_tpu_torch.elastic import remesh as _remesh
+        with _remesh.phase("rendezvous"):
+            dist.init_process_group(**kw)
+        t_rebuild = time.perf_counter()
         _state.rank, _state.size = rank, size
         _state.local_rank = ident["local_rank"]
         _state.local_size = ident["local_size"]
@@ -184,16 +200,21 @@ def init() -> None:
         # bind failure only warns.
         from horovod_tpu_torch.metrics.exporter import start_worker_exporter
         _state.metrics_exporter = start_worker_exporter(_state)
+        ep = _remesh.current()
+        if ep is not None and not ep.finished:
+            ep.add_phase("rebuild", time.perf_counter() - t_rebuild)
 
 
-def shutdown() -> None:
-    """Stand the diagnostics plane down and destroy the process group;
-    ``init`` may be called again after."""
+def shutdown(force: bool = False) -> None:
+    """Stand the diagnostics plane down and end the world; ``init`` may be
+    called again after. Without ``force`` every rank agrees first (see the
+    module docstring); ``force=True`` skips the agreement, for a world
+    that lost a peer."""
     with _state.lock:
         if not _state.initialized:
             return
         from horovod_tpu_torch.diagnostics.flight_recorder import record_event
-        record_event("shutdown", rank=_state.rank)
+        record_event("shutdown", rank=_state.rank, force=force)
         try:
             # a watchdog must not run against a torn-down world, but a
             # shutdown->init cycle must not silently disarm it either:
@@ -217,7 +238,41 @@ def shutdown() -> None:
         finally:
             _state.initialized = False
             if dist.is_initialized():
-                dist.destroy_process_group()
+                if not force and not _agree_to_end(
+                        _state.config.shutdown_grace_s):
+                    force = True
+                if force:
+                    _abort_group(_state.backend)
+                else:
+                    dist.destroy_process_group()
+
+
+def _agree_to_end(grace: float) -> bool:
+    """Every rank reaches a barrier before any destroys the group. False
+    when the barrier failed or outlived the grace: a peer is gone."""
+    if dist.get_world_size() == 1:
+        return True
+    try:
+        work = dist.barrier(async_op=True)
+        work.wait(timeout=datetime.timedelta(seconds=grace))
+        return True
+    except RuntimeError as e:   # DistBackendError, a peer's reset, timeout
+        from horovod_tpu_torch.common.logging import get_logger
+        get_logger().warning(
+            "shutdown: the world did not agree to end within %.1f s (%s); "
+            "tearing the group down without waiting", grace, e)
+        return False
+
+
+def _abort_group(backend: str) -> None:
+    """Tear the group down without waiting on peers. NCCL's
+    ``destroy_process_group`` waits for a dead peer's collectives, so its
+    communicators are aborted instead; gloo's destroy returns at once."""
+    if backend == "nccl":
+        from torch.distributed import distributed_c10d
+        distributed_c10d._abort_process_group()
+    else:
+        dist.destroy_process_group()
 
 
 atexit.register(shutdown)

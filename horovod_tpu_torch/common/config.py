@@ -60,7 +60,9 @@ class Config:
     ``tpu_operations`` picks the ``torch.distributed`` backend (``NCCL`` or
     ``GLOO``; empty: NCCL when the process has a card, gloo otherwise).
     The rendezvous is rank 0's TCP store; a launched world of more than one
-    process needs its address and port. ``log_level`` and
+    process needs its address and port. ``shutdown_grace_s`` bounds the
+    barrier at which every rank agrees to end before ``shutdown()``
+    destroys the group (the JAX core's 10 s consensus grace). ``log_level`` and
     ``log_hide_timestamp`` set the rank-tagged logger
     (``common/logging.py``). The mesh-path plan search
     (``train/autotune.py``): ``autotune_mesh`` makes it the default of
@@ -93,6 +95,7 @@ class Config:
     gloo_timeout_seconds: float = 30.0
     rendezvous_addr: str = ""
     rendezvous_port: int = 0
+    shutdown_grace_s: float = 10.0
     log_level: str = "WARNING"
     log_hide_timestamp: bool = False
     autotune_mesh: bool = False
@@ -128,6 +131,7 @@ class Config:
             rendezvous_port=env_int(
                 "RENDEZVOUS_PORT",
                 int(os.environ.get("HOROVOD_GLOO_RENDEZVOUS_PORT") or 0)),
+            shutdown_grace_s=env_float("SHUTDOWN_GRACE_S", d.shutdown_grace_s),
             log_level=env_str("LOG_LEVEL", d.log_level).upper(),
             log_hide_timestamp=env_bool("LOG_HIDE_TIME",
                                         d.log_hide_timestamp),

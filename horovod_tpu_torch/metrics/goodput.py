@@ -30,10 +30,10 @@ attributes EVERY second of job wall time to a closed category set:
 
 The checkpoint store (``checkpoint/store.py``) feeds
 :func:`note_checkpoint_stall` with the seconds a save or a restore held
-its caller. The port has no elastic re-mesh yet (ROADMAP queue 1 item
-7): nothing calls :func:`note_remesh`, so ``remesh_recovery`` reads zero
-until that slice wires its seam in. The category stays, so the books
-have the JAX package's shape.
+its caller; a completed elastic re-mesh episode
+(``horovod_tpu_torch/elastic/remesh.py``) feeds :func:`note_remesh` with
+its total, the ``remesh_recovery`` charge, as the JAX episode does
+(``horovod_tpu/elastic/remesh.py:128``).
 
 Everything is fed from seams that already exist — the StepTimer step
 envelope, the exposed-comm gauge, compile_watch totals, the guard-skip
@@ -170,8 +170,8 @@ class GoodputLedger:
                 self._ckpt += max(0.0, float(seconds))
 
     def note_remesh(self, seconds: float) -> None:
-        """A completed elastic re-mesh episode's total recovery time (no
-        caller until the elastic slice)."""
+        """A completed elastic re-mesh episode's total recovery time
+        (``elastic/remesh.py`` ``Episode.finish``)."""
         with self._lock:
             if self._t_open is not None:
                 self._remesh += max(0.0, float(seconds))

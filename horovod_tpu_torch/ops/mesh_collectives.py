@@ -17,11 +17,20 @@ already-reduced slices (one quantization error of the exact sum). An axis
 of size 1 still runs its collective. With NCCL the collectives run on
 NCCL's stream; a result is ready on the caller's stream once its
 ``wait()`` returned.
+
+A collective that fails because a peer is gone (gloo: "Connection closed
+by peer"; any ``torch.distributed.DistError``) raises
+:class:`~horovod_tpu_torch.elastic.HorovodInternalError`, so an elastic
+loop (``horovod_tpu_torch.elastic.run``) restores and re-meshes, as the
+JAX core's collectives do (``horovod_tpu/core/core_backend.py:188-192``).
+:func:`peer_loss` is that one translation; the broadcasts of
+``train/optimizer.py`` use it too.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -50,6 +59,26 @@ def _host_staged(op: str, t: torch.Tensor, group) -> bool:
             and dist.get_backend(group) == "gloo")
 
 
+# what a collective's error says when a peer process is gone (gloo's
+# transport, a store reset, a timed-out wait), lower-cased
+_PEER_LOSS = ("closed by peer", "reset by peer", "broken pipe",
+              "connection refused", "timed out", "timeout")
+
+
+@contextlib.contextmanager
+def peer_loss() -> Iterator[None]:
+    """Raise a peer's loss inside the block as ``HorovodInternalError``."""
+    try:
+        yield
+    except RuntimeError as e:
+        from horovod_tpu_torch.elastic import HorovodInternalError
+        if isinstance(e, HorovodInternalError) or not (
+                isinstance(e, dist.DistError)
+                or any(m in str(e).lower() for m in _PEER_LOSS)):
+            raise
+        raise HorovodInternalError(f"collective failed: {e}") from e
+
+
 class Pending:
     """A collective in flight: :meth:`wait` returns its result."""
 
@@ -58,7 +87,8 @@ class Pending:
 
     def wait(self) -> torch.Tensor:
         if self._work is not None:
-            self._work.wait()
+            with peer_loss():
+                self._work.wait()
             self._work = None
         return self._finish()
 
@@ -78,7 +108,9 @@ def start_preduce(x: torch.Tensor, axis, op: ReduceOp = ReduceOp.SUM,
         out = x if inplace else x.clone()
         torch_op = {ReduceOp.MIN: dist.ReduceOp.MIN,
                     ReduceOp.MAX: dist.ReduceOp.MAX}.get(op, dist.ReduceOp.SUM)
-        work = dist.all_reduce(out, torch_op, group=axis.group, async_op=True)
+        with peer_loss():
+            work = dist.all_reduce(out, torch_op, group=axis.group,
+                                   async_op=True)
         if op == ReduceOp.AVERAGE:
             return Pending(work, lambda: _mean(out, n))
         return Pending(work, lambda: out)
@@ -103,8 +135,9 @@ def preduce(x: torch.Tensor, axis, op: ReduceOp = ReduceOp.SUM
 def _gathered(x: torch.Tensor, axis) -> Pending:
     """Every rank's ``x``, stacked ``[n, *x.shape]`` in axis order."""
     buf = x.new_empty(axis.size * x.numel())
-    work = _all_gather(buf, x.contiguous().reshape(-1), group=axis.group,
-                       async_op=True)
+    with peer_loss():
+        work = _all_gather(buf, x.contiguous().reshape(-1),
+                           group=axis.group, async_op=True)
     return Pending(work, lambda: buf.view((axis.size,) + tuple(x.shape)))
 
 
@@ -129,8 +162,9 @@ def start_preduce_scatter(x: torch.Tensor, axis, scatter_dim: int = 0
                          f"size ({n})")
     src = x.movedim(scatter_dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    work = _reduce_scatter(out, src, dist.ReduceOp.SUM, group=axis.group,
-                           async_op=True)
+    with peer_loss():
+        work = _reduce_scatter(out, src, dist.ReduceOp.SUM,
+                               group=axis.group, async_op=True)
     return Pending(work, lambda: out.movedim(0, scatter_dim))
 
 
@@ -144,7 +178,8 @@ def preduce_scatter(x: torch.Tensor, axis, scatter_dim: int = 0
 def pbroadcast(x: torch.Tensor, axis, root: int = 0) -> torch.Tensor:
     """Axis position ``root``'s tensor, on every rank of the axis."""
     out = x.clone()
-    dist.broadcast(out, src=axis.ranks[root], group=axis.group)
+    with peer_loss():
+        dist.broadcast(out, src=axis.ranks[root], group=axis.group)
     return out
 
 
@@ -160,7 +195,8 @@ def palltoall(x: torch.Tensor, axis, split_dim: int = 0,
                          f"({n})")
     src = x.movedim(split_dim, 0).contiguous()
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=axis.group)
+    with peer_loss():
+        dist.all_to_all_single(out, src, group=axis.group)
     blocks = out.view((n, src.shape[0] // n) + tuple(src.shape[1:]))
     return torch.cat([b.movedim(0, split_dim) for b in blocks.unbind(0)],
                      dim=concat_dim)
@@ -307,8 +343,9 @@ def exchange(sends, recvs, group) -> None:
             staged.append((buf, host))
             buf = host
         ops.append(dist.P2POp(dist.irecv, buf, src, group))
-    for w in dist.batch_isend_irecv(ops):
-        w.wait()
+    with peer_loss():
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
     for buf, host in staged:
         buf.copy_(host)
 

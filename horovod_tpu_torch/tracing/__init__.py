@@ -11,7 +11,8 @@ recorder stamps into every event it records, spans counted as
 The JAX package also carries the context across processes: as a
 ``traceparent`` HTTP header on KV and serving hops and as a field of KV
 documents (``from_doc``). The serving hops (router → replica) carry it
-since the port's serving slice; the KV carriers arrive with the runner.
+since the port's serving slice, the KV hops and the elastic driver's
+world documents since its runner slice.
 
 Knobs: ``HVD_TPU_TRACE`` (default on) kills every context source when
 0; ``HVD_TPU_TRACE_SAMPLE`` (default 1.0) samples new ROOT traces by
@@ -161,6 +162,13 @@ def decode(header: Optional[str]) -> Optional[TraceContext]:
 
 
 # -- thread-local active context ----------------------------------------------
+def from_doc(doc: Any) -> Optional[TraceContext]:
+    """The context a KV document carries (``doc["traceparent"]``)."""
+    if isinstance(doc, dict):
+        return decode(doc.get(TRACEPARENT))
+    return None
+
+
 def current() -> Optional[TraceContext]:
     return getattr(_tls, "ctx", None)
 

@@ -9,10 +9,9 @@ or used directly. ``StepTimer`` and ``TelemetryCallback`` carry the JAX
 callbacks' metric names, flight events and seams (profiling, goodput, time
 series, anomaly engine, the hang watchdog that ``TelemetryCallback`` arms
 and ``StepTimer.end_step`` feeds), in the same order;
-``CheckpointCallback`` saves through the native sharded store. Two seams
-of the JAX callbacks wait for the control plane (ROADMAP queue 1 item 7):
-the elastic re-mesh timeline's ``note_step_end`` and the chaos
-``step_tick``.
+``CheckpointCallback`` saves through the native sharded store. One seam
+of the JAX callbacks waits for the chaos plane (ROADMAP queue 1 item 7):
+the chaos ``step_tick``.
 
 On the card a step's kernels run after the host has queued them: end a
 step once its results are read (``float(loss)``, as a loop that logs its
@@ -179,11 +178,13 @@ class StepTimer:
         from horovod_tpu_torch.metrics import timeseries
         timeseries.record_step(step_no, dt, units)
         # deep-profiling seam: close an active capture window when its
-        # step budget is spent, and sample the memory gauges (the JAX
-        # timer then closes the re-mesh timeline's first_step phase,
-        # which arrives with the elastic slice)
+        # step budget is spent, and sample the memory gauges; a completed
+        # step also closes the re-mesh timeline's first_step phase
+        # (horovod_tpu/train/callbacks.py:163-164)
         from horovod_tpu_torch import profiling
         profiling.on_step_end(step_no)
+        from horovod_tpu_torch.elastic import remesh
+        remesh.note_step_end(step_no)
         from horovod_tpu_torch.metrics import goodput
         goodput.note_step_end(dt)
         if units:

@@ -61,6 +61,7 @@ from horovod_tpu_torch.compression.error_feedback import (ErrorFeedback,
 from horovod_tpu_torch.compression.metrics import record_compression
 from horovod_tpu_torch.compression.quantizers import Quantized, Quantizer
 from horovod_tpu_torch.ops.mesh_collectives import (Pending, _gathered,
+                                                    peer_loss,
                                                     start_preduce)
 from horovod_tpu_torch.ops.reduce_op import Average, ReduceOp
 from horovod_tpu_torch.train.buckets import (Bucket, BucketPlan, leaf_nbytes,
@@ -604,11 +605,11 @@ def broadcast_parameters(params, root_rank: int = 0,
     if not isinstance(params, (dict, list, tuple, torch.nn.Module)):
         params = list(params)
     src = process_set.global_rank(root_rank)
-    with torch.no_grad():
+    with torch.no_grad(), peer_loss():
         works = [dist.broadcast(t.detach(), src=src, group=process_set.group,
                                 async_op=True) for t in _tensors(params)]
-    for w in works:
-        w.wait()
+        for w in works:
+            w.wait()
     return params
 
 
@@ -649,8 +650,9 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
             if isinstance(v, tuple) and len(v) == 3 and v[0] == "tensor":
                 v = (sd["state"][pid][k] if is_root else
                      torch.empty(v[1], dtype=v[2], device=params[pid].device))
-                dist.broadcast(v, src=process_set.global_rank(root_rank),
-                               group=process_set.group)
+                with peer_loss():
+                    dist.broadcast(v, src=process_set.global_rank(root_rank),
+                                   group=process_set.group)
             state[pid][k] = v
     if not is_root:
         optimizer.load_state_dict({"param_groups": skel["param_groups"],
@@ -666,8 +668,10 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None,
     if process_set.size() == 1:
         return obj
     box = [obj if process_set.rank() == root_rank else None]
-    dist.broadcast_object_list(box, src=process_set.global_rank(root_rank),
-                               group=process_set.group)
+    with peer_loss():
+        dist.broadcast_object_list(
+            box, src=process_set.global_rank(root_rank),
+            group=process_set.group)
     return box[0]
 
 
@@ -679,5 +683,6 @@ def allgather_object(obj, name: Optional[str] = None,
     if process_set.size() == 1:
         return [obj]
     out = [None] * process_set.size()
-    dist.all_gather_object(out, obj, group=process_set.group)
+    with peer_loss():
+        dist.all_gather_object(out, obj, group=process_set.group)
     return out

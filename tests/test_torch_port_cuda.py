@@ -759,10 +759,95 @@ def test_resnet_step_on_nccl_world_of_one_matches_cpu(nccl_mesh):
         assert float((res["cuda"][1][k] - v).abs().max()) <= \
             1e-6 * max(1.0, float(v.abs().max())), k
 
+# -- the launcher and elastic training on the card ------------------------------
+
+def test_elastic_recover_on_the_card_at_small_depth(dev, tmp_path):
+    """chip_smoke's [elastic_recover] at depth 1: three gloo ranks of the
+    flagship on cuda:0 under the port's driver; rank 2 dies after its
+    commit of step 2, one replacement boots, the survivors keep their
+    PIDs and book the six re-mesh phases, the replicas end equal, and
+    both kernels ran on every rank."""
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
+    from horovod_tpu_torch.runner.hosts import HostInfo
+    _build.build_all()
+    out = str(tmp_path)
+    cmd = worker.command(out, "--device", "cuda:0", "--layers", 1,
+                         "--steps", 4, "--rows", 2, "--kill", "2:2")
+    rc, _, _ = worker.run_driver(FixedHosts([HostInfo("localhost", 3)]),
+                                 cmd, out, reset_limit=3, timeout=240,
+                                 env={"HVD_TPU_GLOO_TIMEOUT_SECONDS": "60"})
+    evs = worker.events(out)
+    assert rc == 0, evs
+    boots = [e for e in evs if e["kind"] == "boot"]
+    dones = [e for e in evs if e["kind"] == "done"]
+    assert sorted(b["rank"] for b in boots) == [0, 1, 2, 2]
+    pid = {b["rank"]: b["pid"] for b in boots if b["rank"] < 2}
+    phases = {"failure_detect", "drain", "rendezvous", "rebuild", "restore",
+              "first_step"}
+    for d in dones:
+        assert d["size"] == 3 and d["step"] == 4
+        assert d["launches"]["flash_attention_fwd"] > 0
+        assert d["launches"]["xent_fwd"] > 0
+        if d["rank"] < 2:
+            assert d["pid"] == pid[d["rank"]]
+            assert set(d["remesh"]["phases"]) >= phases
+    assert len({d["digest"] for d in dones}) == 1
+
+
+def _w_nccl_peer_dies():
+    """Rank 1 leaves after one allreduce; rank 0 waits until it is gone,
+    then times its shutdown (``HVD_TEST_FORCE``: forced, or negotiated
+    with a short grace)."""
+    import time
+
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    out = os.environ["TEST_OUT"]
+    t = torch.ones(4, device=hvd.device())
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    if hvd.rank() == 1:
+        np.savez(os.path.join(out, "nccl_peer_dies.rank1.npz"),
+                 ok=np.array(1))
+        os._exit(0)
+    while not os.path.exists(os.path.join(out, "nccl_peer_dies.rank1.npz")):
+        time.sleep(0.05)
+    time.sleep(1.0)
+    t0 = time.monotonic()
+    hvd.shutdown(force=os.environ["HVD_TEST_FORCE"] == "1")
+    np.savez(os.path.join(out, "nccl_peer_dies.rank0.npz"),
+             shutdown_s=np.array(time.monotonic() - t0),
+             initialized=np.array(dist.is_initialized()))
+    os._exit(0)
+
+
+@pytest.mark.parametrize("force", [True, False])
+def test_nccl_shutdown_returns_when_its_peer_was_killed(tmp_path, force):
+    """Two cards, one NCCL rank each: after rank 1 dies, rank 0's
+    shutdown aborts the communicator instead of hanging in
+    ``destroy_process_group`` (forced at once; negotiated after the
+    barrier's grace)."""
+    from torch_port_worker import spawn_world
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ranks = spawn_world(__file__, "nccl_peer_dies", 2, tmp_path,
+                        {"HOROVOD_TPU_OPERATIONS": "NCCL",
+                         "TEST_OUT": str(tmp_path),
+                         "HVD_TEST_FORCE": "1" if force else "0",
+                         "HVD_TPU_SHUTDOWN_GRACE_S": "3"}, timeout=120)
+    assert not bool(ranks[0]["initialized"])
+    assert float(ranks[0]["shutdown_s"]) < (5.0 if force else 10.0)
+
+
 if __name__ == "__main__":
     import sys
     from torch_port_worker import worker_main
-    sys.exit(worker_main({"ring": _w_ring, "pp_nccl": _w_pp_nccl},
+    sys.exit(worker_main({"ring": _w_ring, "pp_nccl": _w_pp_nccl,
+                          "nccl_peer_dies": _w_nccl_peer_dies},
                          sys.argv[1:]))
 
 

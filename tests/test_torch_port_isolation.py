@@ -53,16 +53,36 @@ OBSERVABILITY = ("common.timeline", "diagnostics.clock",
                  "tracing.reader")
 
 
-def test_observability_modules_are_covered():
-    """Every module of the exporter, watchdog and timeline slice is a
-    source the checks above read and a module the import walk loads."""
+# the launcher and elastic slice: the 16 modules at their JAX paths
+CONTROL_PLANE = ("common.retry", "runner.hosts", "runner.safe_exec",
+                 "runner.http_kv", "runner.exec_run", "runner.launch",
+                 "runner.kv_relay", "runner.elastic.discovery",
+                 "runner.elastic.registration", "runner.elastic.journal",
+                 "runner.elastic.driver", "elastic.notification",
+                 "elastic.outage", "elastic.remesh", "elastic.__init__",
+                 "torch.elastic")
+
+
+def _covered(modules):
     import pkgutil
     walked = {m.name for m in pkgutil.walk_packages(
         horovod_tpu_torch.__path__, "horovod_tpu_torch.")}
     srcs = set(_port_sources())
-    for mod in OBSERVABILITY:
-        assert "horovod_tpu_torch." + mod in walked, mod
+    for mod in modules:
+        name = "horovod_tpu_torch." + mod.removesuffix(".__init__")
+        assert name in walked, mod
         assert os.path.join(PKG, *mod.split(".")) + ".py" in srcs, mod
+
+
+def test_observability_modules_are_covered():
+    """Every module of the exporter, watchdog and timeline slice is a
+    source the checks above read and a module the import walk loads."""
+    _covered(OBSERVABILITY)
+
+
+def test_control_plane_modules_are_covered():
+    """So is every module of the launcher and elastic slice."""
+    _covered(CONTROL_PLANE)
 
 
 def test_sources_import_nothing_of_jax():
