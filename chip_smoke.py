@@ -336,6 +336,47 @@ counts in ``hvdrun_launches`` and ``elastic_launches``:
   first completed step, with every phase's seconds; the journal replays
   to the driver's final state.
 
+The eager-collectives slice adds four phases (host, socket and ctypes
+code: no kernel of its own), the C++ core built from ``cpp/`` with g++
+beside the nvcc builds (``[build]``'s ``core_seconds``), each phase's
+launch counts in ``eager_launches``:
+
+* ``[hvd_torch]``: in an NCCL world of one, the reference idiom through
+  ``horovod_tpu_torch.torch``: ``DistributedOptimizer(adamw(...),
+  named_parameters=...)``, ``broadcast_parameters``,
+  ``broadcast_optimizer_state``, then TRAIN_STEPS steps of
+  ``loss.backward(); opt.step()`` from the seed-0 weights. Checks: the
+  losses equal ``[train]``'s to the bit; the kernels launch 4 and 1 times
+  a step.
+* ``[eager_nccl]``: in that world, the ``torch.distributed`` eager plane
+  (``ops.dist_backend.DistBackend``) over the NCCL group, every op on CUDA
+  tensors in fp32, bf16, fp16, int32 and int64, equal to
+  ``LocalBackend``'s and on the card.
+* ``[eager_core_2rank]``: two ranks of this script (``--gloo-rank DIR
+  eager``) launched by ``python -m horovod_tpu_torch.runner.launch -np 2
+  -H localhost:2``, both on ``cuda:0``, gloo, the core as the eager
+  engine. On CUDA tensors in fp32, bf16, fp16, int32 and int64: allreduce
+  (sum, min, max, average), grouped allreduce, a ragged allgather, a
+  broadcast, an uneven alltoall and reducescatter, each result on the
+  card and equal to its host reference (fp16 within one unit in the last
+  place: the core rounds ties up); a grouped allreduce of the flagship's
+  gradient shapes in fp32 (116 MB), EAGER_FUSED_REPEATS times, timed with
+  its host staging, and the same group through the ``torch.distributed``
+  plane over gloo; ``quantized_grouped_allreduce`` of that group with
+  ``Compression.int8`` (``quantize`` once and ``dequantize`` twice a leaf
+  on each rank, never a plain version; within QUANT_TOL of the plain
+  versions on the host); a registered process set a rank; the Adasum op
+  within EAGER_ADASUM_RTOL of the combine on the host; ``join`` with rank
+  1 reducing once more after rank 0 joined.
+* ``[hvd_torch_2rank]``: the same two ranks, the idiom of ``[hvd_torch]``
+  over the core, 4 rows a rank, EAGER_STEPS steps. Checks: step 1's mean
+  loss within DP_LOSS_TOL of ``[train]``'s and its synced gradients within
+  DP_GRAD_TOL rel L2 of one process's full batch; the replicas
+  bit-identical after the last step; the response cache's hits rising
+  after step 1 and ``cache_hit_rate`` above 0; ``hvd_engine_*`` on rank
+  0's exporter; the kernels launch 4 and 1 times a step on each rank. It
+  prints the step's milliseconds split into staging, wire and compute.
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -525,6 +566,10 @@ ELASTIC_KILL = (2, 3)     # rank 2 exits after its commit of step 3
 ELASTIC_ROWS = 8          # rows a rank takes a step (the flagship's B)
 ELASTIC_GLOO_TIMEOUT_S = 60   # the elastic world's collective timeout
 ELASTIC_TIMEOUT_S = 420   # the whole driver run
+EAGER_STEPS = 5           # [hvd_torch_2rank]: adapter steps, B 4 a rank
+EAGER_FUSED_REPEATS = 3   # [eager_core_2rank]: the 116 MB grouped allreduce
+EAGER_ADASUM_RTOL = 1e-5  # the core's Adasum against the host combine
+EAGER_TIMEOUT_S = 600     # the hvdrun call of both two-rank phases
 REMESH_PHASES = ("failure_detect", "drain", "rendezvous", "rebuild",
                  "restore", "first_step")
 
@@ -4251,16 +4296,12 @@ def obs_rank_setup(torch):
     counters zeroed. Returns ``(hvd, model, mesh, local, counters)``."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.entry import entry
-    from horovod_tpu_torch.ops import attention, quantize, xent
     torch.backends.cuda.matmul.allow_tf32 = False
     hvd.init()
     _, (model, tokens, targets) = entry(device=torch.device("cuda", 0))
     mesh = hvd.build_mesh(dp=hvd.size())
     local = hvd.shard_batch(tokens, targets, mesh)
-    counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
-                "xent_fwd": xent.xent_fwd_cuda,
-                **{fn.__name__[:-len("_cuda")]: fn
-                   for fn in quantize.LAUNCHERS}}
+    counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
     return hvd, model, mesh, local, counters
@@ -4793,6 +4834,530 @@ def phase_elastic_recover(torch, cfg, card: str) -> dict:
     return launches
 
 
+def kernel_counters():
+    """The launch counters of the eight kernels, by kernel name."""
+    from horovod_tpu_torch.ops import attention, quantize, xent
+    return {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
+            "xent_fwd": xent.xent_fwd_cuda,
+            **{fn.__name__[:-len("_cuda")]: fn
+               for fn in quantize.LAUNCHERS}}
+
+
+def adapter_step(torch, hvd_torch, model, opt, tokens, targets, be=None):
+    """One step of the reference idiom (``loss.backward(); opt.step()``,
+    the hooks enqueueing each gradient during the backward pass), split
+    in three parts, each ended by a device sync: the forward and backward
+    pass with the hooks, the wait in ``synchronize``, the optimizer's
+    apply. Returns ``(loss, ms)``: ``step``; ``staging`` (the core's host
+    copies, down in the hooks and back in the wait; 0 without ``be``);
+    ``wire`` (the wait less its copies back); ``compute`` (the rest)."""
+    from horovod_tpu_torch.models.transformer import forward_loss_spmd
+
+    def staged():
+        return be.staging_s if be is not None else 0.0
+    torch.cuda.synchronize()
+    s0, t0 = staged(), time.perf_counter()
+    opt.zero_grad(set_to_none=True)
+    loss, aux = forward_loss_spmd(model, tokens, targets)
+    (loss + 0.01 * aux).backward()
+    torch.cuda.synchronize()
+    s1, t1 = staged(), time.perf_counter()
+    opt.synchronize()
+    torch.cuda.synchronize()
+    s2, t2 = staged(), time.perf_counter()
+    with opt.skip_synchronize():
+        opt.step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ms = {"step": 1e3 * (t3 - t0), "staging": 1e3 * (s2 - s0),
+          "wire": 1e3 * ((t2 - t1) - (s2 - s1))}
+    ms["compute"] = ms["step"] - ms["staging"] - ms["wire"]
+    return float(loss.detach()), ms
+
+
+def phase_hvd_torch(torch, cfg, init_sd, batch, train_losses):
+    """[hvd_torch] and [eager_nccl] in an NCCL world of one: the reference
+    idiom through ``horovod_tpu_torch.torch`` for TRAIN_STEPS AdamW steps
+    (the losses are [train]'s to the bit: the hooks enqueue nothing in a
+    world of one), then the ``torch.distributed`` eager plane built over
+    the world-of-one NCCL group, held against ``LocalBackend`` on CUDA
+    tensors. Returns the kernels' launches of the training steps."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.models import Transformer, adamw
+    from horovod_tpu_torch.ops.backend import LocalBackend
+    from horovod_tpu_torch.ops.dist_backend import DistBackend
+    from horovod_tpu_torch.ops.reduce_op import ReduceOp
+    tokens, targets = batch
+    hvd.init()
+    torch.cuda.set_device(hvd.local_rank())
+    group_backend = dist.get_backend()
+    check(hvd.size() == 1 and group_backend == "nccl",
+          f"hvd_torch: expected an NCCL world of one, got {hvd.size()} "
+          f"{group_backend}")
+    model = Transformer(cfg)
+    model.load_state_dict(init_sd)
+    opt = hvd.DistributedOptimizer(adamw(model.parameters()),
+                                   named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    every = kernel_counters()
+    for c in every.values():
+        c.launches = 0
+    losses, split = [], []
+    for _ in range(TRAIN_STEPS):
+        loss, ms = adapter_step(torch, hvd, model, opt, tokens, targets)
+        losses.append(loss)
+        split.append(ms)
+    launches = {k: c.launches for k, c in every.items()}
+    med = sorted(s["step"] for s in split[1:])[(TRAIN_STEPS - 1) // 2]
+    say("hvd_torch", world=hvd.size(), backend=dist.get_backend(),
+        losses=",".join(f"{x:.6f}" for x in losses),
+        train_losses=",".join(f"{x:.6f}" for x in train_losses),
+        bit_equal=losses == train_losses, median_step_ms_after_warmup=med,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items()))
+    check(losses == train_losses, f"hvd_torch: losses {losses} are not "
+                                  f"[train]'s {train_losses} to the bit")
+    want = {k: 0 for k in every}
+    want.update(flash_attention_fwd=cfg.n_layers * TRAIN_STEPS,
+                xent_fwd=TRAIN_STEPS)
+    check(launches == want, f"hvd_torch: launches {launches}, expected "
+                            f"{want}")
+    del model, opt
+
+    # the eager data plane over the NCCL group, against LocalBackend
+    dev = torch.device("cuda", 0)
+    plane, local = DistBackend(), LocalBackend()
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+               torch.int64):
+        x = (torch.randn(4, 33, generator=g, device=dev) * 50).to(dt)
+        ops = [ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX]
+        if dt.is_floating_point:
+            ops += [ReduceOp.AVERAGE, ReduceOp.ADASUM] \
+                if dt == torch.float32 else [ReduceOp.AVERAGE]
+        pairs = [(plane.allreduce_async("x", x, op).wait(),
+                  local.allreduce_async("x", x, op).wait()) for op in ops]
+        pairs.append((plane.grouped_allreduce_async(
+            ["a", "b"], [x, x[0]], ReduceOp.SUM).wait()[1],
+            local.grouped_allreduce_async(
+                ["a", "b"], [x, x[0]], ReduceOp.SUM).wait()[1]))
+        pairs += [(plane.allgather_async("g", x).wait(), x),
+                  (plane.broadcast_async("b", x, 0).wait(), x),
+                  (plane.alltoall_async("t", x, [4]).wait()[0], x),
+                  (plane.reducescatter_async("r", x, ReduceOp.SUM).wait(),
+                   x)]
+        for got, want_t in pairs:
+            check(got.device == dev and got.dtype == dt
+                  and got.shape == want_t.shape,
+                  f"eager_nccl: {dt} result {got.device} {got.dtype} "
+                  f"{tuple(got.shape)}")
+            worst = max(worst, max_err(got.double(), want_t.double()))
+    plane.shutdown()
+    hvd.shutdown()
+    say("eager_nccl", world=1, backend=group_backend,
+        dtypes="fp32,bf16,fp16,int32,int64", max_abs_err=worst, tol=0.0)
+    check(worst == 0.0, f"eager_nccl: the NCCL plane is {worst} off "
+                        f"LocalBackend")
+    return launches
+
+
+EAGER_DTYPES = ("float32", "bfloat16", "float16", "int32", "int64")
+
+
+def eager_inputs(torch, rank: int, dt: str, dev):
+    """A rank's seeded inputs of [eager_core_2rank] for one dtype: a
+    [17, 9] tensor, a ragged [rank + 3, 5] one, an uneven alltoall
+    send of ``sum(splits)`` rows and its splits."""
+    import numpy as np
+    rng = np.random.RandomState(100 * rank + EAGER_DTYPES.index(dt))
+    tdt = getattr(torch, dt)
+
+    def make(*shape):
+        x = torch.from_numpy(rng.randn(*shape) * 20)
+        return x.to(tdt).to(dev)
+    splits = [rank + 1, 2 - rank]
+    return make(17, 9), make(rank + 3, 5), make(sum(splits), 4), splits
+
+
+def eager_host_refs(torch, dt: str, n: int):
+    """The host reference of every [eager_core_2rank] result: each rank's
+    inputs made again on the CPU, reduced on the host."""
+    cpu = torch.device("cpu")
+    ins = [eager_inputs(torch, r, dt, cpu) for r in range(n)]
+    xs = [i[0] for i in ins]
+    f32 = [x.float() if x.is_floating_point() else x for x in xs]
+    total = f32[0] + f32[1]
+    out = {"sum": total.to(xs[0].dtype),
+           "min": torch.minimum(xs[0], xs[1]),
+           "max": torch.maximum(xs[0], xs[1]),
+           "ragged": torch.cat([i[1] for i in ins])}
+    if xs[0].is_floating_point():
+        out["avg"] = (total * 0.5).to(xs[0].dtype)
+    for r in range(n):
+        blocks = []
+        for src in range(n):
+            sends, splits = ins[src][2], ins[src][3]
+            off = sum(splits[:r])
+            blocks.append(sends[off:off + splits[r]])
+        out[f"a2a{r}"] = torch.cat(blocks)
+    return out
+
+
+def eager_rank_main(out_dir: str) -> int:
+    """One rank of [eager_core_2rank] and [hvd_torch_2rank], started by
+    the port's hvdrun (two slots of localhost, gloo, both on ``cuda:0``,
+    the core as the eager engine): every eager op on CUDA tensors, then
+    the reference idiom through the adapter. Writes ``rank<r>.json`` and
+    step 1's synced gradients (``grads<r>.pt``)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.common.basics import _state, backend, eager_backend
+    from horovod_tpu_torch.compression import (BlockInt8Quantizer,
+                                               Compression)
+    from horovod_tpu_torch.entry import _flagship_cfg
+    from horovod_tpu_torch.models import Transformer, adamw
+    from horovod_tpu_torch.models.transformer import (from_jax_params,
+                                                      init_params)
+    from horovod_tpu_torch.ops.adasum import adasum_combine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    hvd.init()
+    rank, n = hvd.rank(), hvd.size()
+    be = eager_backend()
+    res = {"rank": rank, "size": n, "engine": type(be).__name__,
+           "backend": backend(), "errors": []}
+    errors = res["errors"]
+
+    def mark(what):
+        print(f"[eager rank {rank}] {what} at "
+              f"{time.perf_counter() - t_start:.3f} s", flush=True)
+
+    def expect(ok, msg):
+        if not ok:
+            errors.append(msg)
+
+    def same(name, got, want):
+        """Equal to the host reference; fp16 within one unit in the last
+        place (the core's F32ToF16 rounds ties up, torch's to even)."""
+        expect(got.device == dev, f"{name}: on {got.device}, not {dev}")
+        expect(got.dtype == want.dtype and got.shape == want.shape,
+               f"{name}: {got.dtype} {tuple(got.shape)} vs "
+               f"{want.dtype} {tuple(want.shape)}")
+        if got.shape != want.shape:
+            return
+        g, w = got.cpu().double(), want.double()
+        if want.dtype == torch.float16:
+            err = float(((g - w).abs() / w.abs().clamp_min(2.0 ** -14)
+                         ).max())
+            expect(err <= 2.0 ** -10, f"{name}: {err} relative off the "
+                                      f"host reference (one fp16 ulp)")
+        else:
+            err = max_err(g, w)
+            expect(err == 0.0, f"{name}: {err} off the host reference")
+
+    mark("the core started")
+    # -- every eager op, on CUDA tensors
+    every = kernel_counters()
+    for c in every.values():
+        c.launches = 0
+    for dt in EAGER_DTYPES:
+        mark(f"ops over {dt}")
+        x, ragged, sends, splits = eager_inputs(torch, rank, dt, dev)
+        ref = eager_host_refs(torch, dt, n)
+        same(f"sum.{dt}", hvd.allreduce(x, op=hvd.Sum, name=f"s.{dt}"),
+             ref["sum"])
+        same(f"min.{dt}", hvd.allreduce(x, op=hvd.Min, name=f"mn.{dt}"),
+             ref["min"])
+        same(f"max.{dt}", hvd.allreduce(x, op=hvd.Max, name=f"mx.{dt}"),
+             ref["max"])
+        if "avg" in ref:
+            same(f"avg.{dt}", hvd.allreduce(x, name=f"a.{dt}"), ref["avg"])
+        got = hvd.grouped_allreduce([x, x[:3]], op=hvd.Sum, name=f"g.{dt}")
+        same(f"grouped.{dt}", got[0], ref["sum"])
+        same(f"grouped1.{dt}", got[1], ref["sum"][:3])
+        same(f"allgather.{dt}", hvd.allgather(ragged, name=f"ag.{dt}"),
+             ref["ragged"])
+        same(f"broadcast.{dt}", hvd.broadcast(x, root_rank=1,
+                                              name=f"b.{dt}"),
+             eager_inputs(torch, 1, dt, torch.device("cpu"))[0])
+        out, recv = hvd.alltoall(sends, splits, name=f"t.{dt}")
+        same(f"alltoall.{dt}", out, ref[f"a2a{rank}"])
+        want_recv = [eager_inputs(torch, src, dt, "cpu")[3][rank]
+                     for src in range(n)]
+        expect(recv.tolist() == want_recv, f"alltoall.{dt}: received "
+                                           f"splits {recv.tolist()}")
+        same(f"reducescatter.{dt}", hvd.reducescatter(
+            x[:16], op=hvd.Sum, name=f"rs.{dt}"),
+            ref["sum"][:16][8 * rank:8 * rank + 8])
+
+    mark("the 116 MB group")
+    # the flagship's gradient shapes in fp32 (116 MB), one fused group
+    cfg = _flagship_cfg()
+    shapes = {k: v.shape for k, v in Transformer(
+        cfg, device="meta").state_dict().items()}
+    names = sorted(shapes)
+    gen = torch.Generator(device=dev)
+
+    def grads_of(r):
+        gen.manual_seed(1000 + r)
+        return [torch.randn(shapes[k], generator=gen, device=dev)
+                for k in names]
+
+    mine = grads_of(rank)
+    mb = sum(t.numel() * 4 for t in mine) / 1e6
+    want = [(a + b) * 0.5 for a, b in zip(grads_of(0), grads_of(1))]
+    fused = []
+    for i in range(EAGER_FUSED_REPEATS):
+        torch.cuda.synchronize()
+        s0 = be.staging_s
+        t0 = time.perf_counter()
+        outs = hvd.grouped_allreduce(mine, name="fused116")
+        torch.cuda.synchronize()
+        fused.append((1e3 * (time.perf_counter() - t0),
+                      1e3 * (be.staging_s - s0)))
+    err = max(max_err(o, w) for o, w in zip(outs, want))
+    expect(all(o.device == dev for o in outs) and err == 0.0,
+           f"fused116: {err} off (a + b) / 2")
+    # the same group through the torch.distributed plane over this gloo
+    # world, beside the core (the dist backend a user gets with
+    # HVD_TPU_EAGER_BACKEND=dist)
+    from horovod_tpu_torch.ops.dist_backend import DistBackend
+    from horovod_tpu_torch.ops.reduce_op import ReduceOp
+    plane = DistBackend()
+    plane_ms = []
+    for i in range(EAGER_FUSED_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pouts = plane.grouped_allreduce_async(names, mine,
+                                              ReduceOp.AVERAGE).wait()
+        torch.cuda.synchronize()
+        plane_ms.append(1e3 * (time.perf_counter() - t0))
+    perr = max(max_err(o, w) for o, w in zip(pouts, want))
+    expect(perr == 0.0, f"fused116 over gloo: {perr} off (a + b) / 2")
+    plane.shutdown()
+    res["fused"] = {"mbytes": mb, "leaves": len(names),
+                    "op_ms": [f[0] for f in fused],
+                    "staging_ms": [f[1] for f in fused], "max_abs_err": err,
+                    "gloo_plane_ms": plane_ms}
+    del pouts
+
+    mark("int8")
+    # int8 over the wire: the quantize and dequantize kernels, never a
+    # plain version (a CUDA tensor reaches the wrappers' kernels only)
+    q0 = {k: every[k].launches for k in ("quantize", "dequantize")}
+    qouts = hvd.quantized_grouped_allreduce(mine, Compression.int8,
+                                            name="q116")
+    torch.cuda.synchronize()
+    q = {k: every[k].launches - q0[k] for k in q0}
+    plain = BlockInt8Quantizer()
+    qerr = 0.0
+    for o, g0, g1 in zip(qouts, grads_of(0), grads_of(1)):
+        ref_q = (plain.qdq(g0.cpu()) + plain.qdq(g1.cpu())) / 2
+        qerr = max(qerr, max_err(o.cpu(), ref_q))
+    expect(all(o.device == dev for o in qouts) and qerr <= QUANT_TOL,
+           f"q116: {qerr} off the plain versions' host reference")
+    expect(q == {"quantize": len(names), "dequantize": n * len(names)},
+           f"q116: launches {q}")
+    res["quantized"] = {"launches": q, "max_abs_err": qerr}
+    del mine, want, outs, qouts
+
+    mark("sets, adasum, join")
+    # a registered process set per rank, the Adasum op, join
+    sets = [hvd.add_process_set([0]), hvd.add_process_set([1])]
+    x = eager_inputs(torch, rank, "float32", dev)[0]
+    same("pset", hvd.allreduce(x, op=hvd.Sum, name="ps",
+                               process_set=sets[rank]), x.cpu())
+    a = eager_inputs(torch, 0, "float32", torch.device("cpu"))[0]
+    b = eager_inputs(torch, 1, "float32", torch.device("cpu"))[0]
+    ada = hvd.allreduce(x, op=hvd.Adasum, name="adasum")
+    want_ada = adasum_combine(a.double(), b.double())
+    ada_err = max_err(ada.cpu().double(), want_ada) / float(
+        want_ada.abs().max())
+    expect(ada.device == dev and ada_err <= EAGER_ADASUM_RTOL,
+           f"adasum: {ada_err} (of the largest element) off the host "
+           f"combine")
+    if rank == 1:   # uneven work: rank 1 reduces once more after 0 joined
+        extra = hvd.allreduce(x, op=hvd.Sum, name="after_join")
+        same("after_join", extra, x.cpu())
+    last = hvd.join()
+    expect(last == 1, f"join: last joiner {last}, expected 1")
+    res["eager"] = {"adasum_rel": ada_err, "join_last": last,
+                    "launches": {k: c.launches for k, c in every.items()}}
+
+    mark("the adapter")
+    # -- [hvd_torch_2rank]: the reference idiom through the adapter
+    model = Transformer(cfg, dev)
+    model.load_state_dict(from_jax_params(init_params(
+        np.random.RandomState(0), cfg)))
+    tokens, targets = flagship_batch(cfg)
+    rows = tokens.shape[0] // n
+    tok = tokens[rank * rows:(rank + 1) * rows].to(dev)
+    tgt = targets[rank * rows:(rank + 1) * rows].to(dev)
+    opt = hvd_torch.DistributedOptimizer(
+        adamw(model.parameters()), named_parameters=model.named_parameters())
+    hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd_torch.broadcast_optimizer_state(opt, root_rank=0)
+    for c in every.values():
+        c.launches = 0
+    losses, split, hits = [], [], []
+    for step in range(EAGER_STEPS):
+        loss, ms = adapter_step(torch, hvd_torch, model, opt, tok, tgt, be)
+        losses.append(loss)
+        split.append(ms)
+        hits.append(hvd.counters()["cache_hits"])
+        if step == 0:
+            torch.save({k: p.grad.detach().cpu()
+                        for k, p in model.named_parameters()},
+                       os.path.join(out_dir, f"grads{rank}.pt"))
+    snap = hvd.metrics_snapshot()
+    text = ""
+    if _state.metrics_exporter is not None:
+        import urllib.request
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{_state.metrics_exporter.port}/metrics",
+                timeout=30) as r:
+            text = r.read().decode()
+    res["adapter"] = {
+        "losses": losses, "split_ms": split, "cache_hits": hits,
+        "cache_hit_rate": snap["derived"].get("cache_hit_rate"),
+        "engine": snap["engine"], "digest": params_digest(model),
+        "exporter_engine_lines": sorted(
+            line.split(" ")[0] for line in text.splitlines()
+            if line.startswith("hvd_engine_")),
+        "launches": {k: c.launches for k, c in every.items()}}
+    hvd.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
+def phase_eager_2rank(torch, cfg, ref_grads, train_losses) -> dict:
+    """[eager_core_2rank] and [hvd_torch_2rank]: two ranks of this script
+    launched by hvdrun (``-np 2 -H localhost:2``, gloo, the core), every
+    check of the module docstring. Returns each phase's launches by
+    rank."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    launch = [sys.executable, "-m", "horovod_tpu_torch.runner.launch"]
+    with tempfile.TemporaryDirectory(prefix="eager_") as out:
+        base, held = reserve_ports(2)
+        env = dict(os.environ, PYTHONPATH=repo, HOROVOD_TPU_OPERATIONS="GLOO",
+                   HVD_TPU_EAGER_BACKEND="core",
+                   HVD_TPU_METRICS_PORT=str(base),
+                   HVD_TPU_GLOO_TIMEOUT_SECONDS=str(GLOO_TIMEOUT_S),
+                   HVD_TPU_AUTOPSY_DIR=os.path.join(out, "autopsy"),
+                   PYTHONFAULTHANDLER="1")
+        logs = os.path.join(out, "logs")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            launch + ["-np", "2", "-H", "localhost:2", "--output-filename",
+                      logs, sys.executable, os.path.abspath(__file__),
+                      "--gloo-rank", out, "eager"], cwd=repo, env=env,
+            capture_output=True, text=True, timeout=EAGER_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for sock in held:
+            sock.close()
+        if r.returncode != 0:
+            tails = []
+            for rk in range(2):
+                for stream in ("stdout", "stderr"):
+                    path = os.path.join(logs, f"rank.{rk}", stream)
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            tails.append(f"-- rank {rk} {stream}:\n"
+                                         f"{f.read()[-4000:]}")
+            check(False, f"eager_core_2rank: hvdrun exited {r.returncode}:"
+                         f"\n{r.stdout[-2000:]}{r.stderr[-2000:]}\n"
+                         + "\n".join(tails))
+        res = []
+        for rk in range(2):
+            with open(os.path.join(out, f"rank{rk}.json")) as f:
+                res.append(json.load(f))
+        grads = [torch.load(os.path.join(out, f"grads{rk}.pt"))
+                 for rk in range(2)]
+    for rr in res:
+        check(not rr["errors"], f"eager_core_2rank: rank {rr['rank']}: "
+                                f"{rr['errors']}")
+        check(rr["engine"] == "CoreBackend" and rr["backend"] == "gloo",
+              f"eager_core_2rank: engine {rr['engine']}, process group "
+              f"{rr['backend']}")
+    f0 = res[0]["fused"]
+    op_ms, st_ms = f0["op_ms"][1:], f0["staging_ms"][1:]
+    say("eager_core_2rank", seconds=secs, launcher="hvdrun -np 2",
+        engine=res[0]["engine"], group=res[0]["backend"],
+        dtypes=",".join(EAGER_DTYPES),
+        ops="allreduce(sum,min,max,avg),grouped,allgather(ragged),"
+            "broadcast,alltoall(uneven),reducescatter,pset,adasum,join",
+        fused_mbytes=f0["mbytes"], fused_leaves=f0["leaves"],
+        fused_op_ms=",".join(f"{x:.3f}" for x in f0["op_ms"]),
+        fused_staging_ms=",".join(f"{x:.3f}" for x in f0["staging_ms"]),
+        fused_median_op_ms=sorted(op_ms)[len(op_ms) // 2],
+        fused_median_staging_ms=sorted(st_ms)[len(st_ms) // 2],
+        fused_max_abs_err=f0["max_abs_err"],
+        fused_gloo_plane_ms=",".join(f"{x:.3f}" for x in
+                                     f0["gloo_plane_ms"]),
+        int8_launches=",".join(f"{k}:{v}" for k, v in
+                               res[0]["quantized"]["launches"].items()),
+        int8_max_abs_err=res[0]["quantized"]["max_abs_err"],
+        adasum_rel=res[0]["eager"]["adasum_rel"],
+        join_last=res[0]["eager"]["join_last"])
+    # [hvd_torch_2rank]
+    a = [rr["adapter"] for rr in res]
+    ref = {k: v.cpu() for k, v in ref_grads.items()}
+    errs = grad_errors(grads[0], ref)
+    worst = max(errs, key=lambda k: errs[k][0])
+    loss1 = (a[0]["losses"][0] + a[1]["losses"][0]) / 2
+    rel = abs(loss1 - train_losses[0]) / abs(train_losses[0])
+    split = a[0]["split_ms"][1:]
+
+    def med(key):
+        return sorted(s[key] for s in split)[len(split) // 2]
+    say("hvd_torch_2rank", steps=EAGER_STEPS, rows_per_rank=4,
+        losses=",".join(f"{x:.6f}" for x in a[0]["losses"]),
+        step1_mean_loss=loss1, train_step1_loss=train_losses[0], rel=rel,
+        tol_rel=DP_LOSS_TOL, worst_grad=worst, grad_rel_l2=errs[worst][0],
+        tol_grad_rel_l2=DP_GRAD_TOL,
+        replicas_bit_identical=a[0]["digest"] == a[1]["digest"],
+        cache_hits=",".join(str(h) for h in a[0]["cache_hits"]),
+        cache_hit_rate=a[0]["cache_hit_rate"],
+        exporter_engine_gauges=len(a[0]["exporter_engine_lines"]),
+        step_ms=",".join(f"{s['step']:.3f}" for s in a[0]["split_ms"]),
+        median_step_ms=med("step"), median_staging_ms=med("staging"),
+        median_wire_ms=med("wire"), median_compute_ms=med("compute"),
+        launches=",".join(f"{k}:{v}" for k, v in a[0]["launches"].items()))
+    check(rel <= DP_LOSS_TOL, f"hvd_torch_2rank: step 1 loss {loss1} is "
+                              f"{rel} off [train]'s {train_losses[0]}")
+    check(errs[worst][0] <= DP_GRAD_TOL,
+          f"hvd_torch_2rank: synced gradient of {worst} is "
+          f"{errs[worst][0]} off the full-batch one")
+    check(a[0]["digest"] == a[1]["digest"],
+          "hvd_torch_2rank: the replicas differ after the last step")
+    check(a[0]["cache_hits"][-1] > a[0]["cache_hits"][0],
+          f"hvd_torch_2rank: the response cache did not take over after "
+          f"step 1: hits {a[0]['cache_hits']}")
+    check((a[0]["cache_hit_rate"] or 0) > 0,
+          f"hvd_torch_2rank: cache_hit_rate {a[0]['cache_hit_rate']}")
+    check("hvd_engine_cache_hits" in a[0]["exporter_engine_lines"],
+          f"hvd_torch_2rank: no hvd_engine_* on the exporter: "
+          f"{a[0]['exporter_engine_lines']}")
+    want = {k: 0 for k in a[0]["launches"]}
+    want.update(flash_attention_fwd=cfg.n_layers * EAGER_STEPS,
+                xent_fwd=EAGER_STEPS)
+    for rr in a:
+        check(rr["launches"] == want, f"hvd_torch_2rank: launches "
+                                      f"{rr['launches']}, expected {want}")
+    return {"eager_core_2rank": [rr["eager"]["launches"] for rr in res],
+            "hvd_torch_2rank": [x["launches"] for x in a]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4821,11 +5386,31 @@ def main() -> int:
         cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    # -- build: one nvcc per kernel source, all started together
+    # -- build: one nvcc per kernel source, all started together, and the
+    # eager core's g++ build (cpp/) beside them
+    import threading
+
+    from horovod_tpu_torch import core
     t0 = time.perf_counter()
+    core_build = {}
+
+    def build_core():
+        try:
+            core_build["path"] = core.library_path()
+        except Exception as e:   # raised again below, on this thread
+            core_build["error"] = e
+        core_build["seconds"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build_core, daemon=True)
+    builder.start()
     _build.build_all()
-    say("build", kernels=",".join(_build.ENTRIES),
-        seconds=time.perf_counter() - t0)
+    nvcc_s = time.perf_counter() - t0
+    builder.join()
+    if "error" in core_build:
+        raise core_build["error"]
+    say("build", kernels=",".join(_build.ENTRIES), seconds=nvcc_s,
+        core=os.path.relpath(core_build["path"], os.path.dirname(
+            os.path.abspath(__file__))), core_seconds=core_build["seconds"])
     for kern, r in _build.ptxas_report("flash_attn_fwd").items():
         say("ptxas", kernel=kern, **r)
 
@@ -5062,11 +5647,32 @@ def main() -> int:
         k["elastic_launches"] = {r: got.get(k["name"], 0)
                                  for r, got in elastic_launches.items()}
 
+    # -- the eager collectives and the horovod.torch adapter: the reference
+    # idiom in an NCCL world of one (and the NCCL eager plane there), then
+    # hvdrun's two gloo ranks on the card over the core
+    eager_launches = {"hvd_torch": phase_hvd_torch(
+        torch, model.cfg, init_sd, (tokens, targets), losses)}
+    eager_launches.update(phase_eager_2rank(torch, model.cfg, ref_grads,
+                                            losses))
+    for k in kernels:
+        k["eager_launches"] = {
+            ph: (got[k["name"]] if isinstance(got, dict)
+                 else [g[k["name"]] for g in got])
+            for ph, got in eager_launches.items()}
+    check(all(eager_launches["hvd_torch_2rank"][r][name] > 0
+              for r in range(2) for name in ("flash_attention_fwd",
+                                             "xent_fwd")),
+          "flash_attn_fwd or xent_fwd did not run on both adapter ranks")
+    check(all(eager_launches["eager_core_2rank"][r][name] > 0
+              for r in range(2) for name in ("quantize", "dequantize")),
+          "quantize or dequantize did not run on both eager ranks")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
             "pp_launches", "ckpt_launches", "serve_launches",
-            "obs_launches", "hvdrun_launches", "elastic_launches")
+            "obs_launches", "hvdrun_launches", "elastic_launches",
+            "eager_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5093,6 +5699,8 @@ if __name__ == "__main__":
             sys.exit(obs_fleet_rank_main(sys.argv[2]))
         if role == "obs_hang":
             sys.exit(obs_hang_rank_main(sys.argv[2]))
+        if role == "eager":
+            sys.exit(eager_rank_main(sys.argv[2]))
         if role in PIPELINE_PHASES:
             sys.exit(pipeline_rank_main(sys.argv[2], role))
         sys.exit(layout_rank_main(sys.argv[2], role))

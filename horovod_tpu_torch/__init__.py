@@ -39,6 +39,15 @@ a continuous-batching decode engine over a paged KV pool (each step
 function captured once in a CUDA graph), replicas with hot swap from the
 checkpoint store, a hedging router and a healing fleet.
 
+The eager collectives (``allreduce``, ``grouped_allreduce``,
+``allgather``, ``broadcast``, ``alltoall``, ``reducescatter``, their
+``*_async`` handles with ``poll``/``synchronize``, ``join``, ``barrier``,
+process sets registered at run time, Adasum) run on the C++ negotiating
+core built from ``cpp/`` (or ``torch.distributed`` with
+``HVD_TPU_EAGER_BACKEND=dist``); ``horovod_tpu_torch.torch`` is the
+reference's ``horovod.torch`` surface over them, with its hook-based
+``DistributedOptimizer``.
+
 ``python -m horovod_tpu_torch.runner.launch`` (``hvdrun``) launches a job,
 static or under the elastic driver (``runner/elastic/``: discovery, the
 write-ahead journal, in-place recovery, growth and shrink); a worker's
@@ -48,9 +57,11 @@ place when a peer dies or the world changes.
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
     NotInitializedError,
+    counters,
     cross_rank,
     cross_size,
     device,
+    engine_state,
     init,
     is_homogeneous,
     is_initialized,
@@ -62,10 +73,38 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     size,
     start_timeline,
     stop_timeline,
+    stragglers,
 )
 from horovod_tpu_torch.common.process_sets import (  # noqa: F401
     ProcessSet,
+    add_process_set,
+    get_process_set_by_id,
     global_process_set,
+    process_set_ids,
+    remove_process_set,
+)
+# the eager collectives (reference: horovod/torch/mpi_ops.py)
+from horovod_tpu_torch.ops.collectives import (  # noqa: F401
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_async,
+    alltoall,
+    alltoall_async,
+    barrier,
+    broadcast,
+    broadcast_async,
+    grouped_allreduce,
+    grouped_allreduce_async,
+    join,
+    poll,
+    quantized_allreduce,
+    quantized_allreduce_async,
+    quantized_grouped_allreduce,
+    quantized_grouped_allreduce_async,
+    reducescatter,
+    reducescatter_async,
+    synchronize,
 )
 from horovod_tpu_torch.compression import (  # noqa: F401
     Compression,
@@ -74,6 +113,9 @@ from horovod_tpu_torch.compression import (  # noqa: F401
 from horovod_tpu_torch.ops.reduce_op import (  # noqa: F401
     Adasum,
     Average,
+    Max,
+    Min,
+    Product,
     ReduceOp,
     Sum,
 )

@@ -18,6 +18,13 @@ in-process store. The eager API (broadcasts, ``DistributedOptimizer``
 without an axis) keeps the JAX ``LocalBackend``'s scaled identity at size 1,
 while a mesh axis of size 1 still runs its collective on the group.
 
+The eager collectives (:mod:`horovod_tpu_torch.ops.collectives`) run on a
+backend of their own, started at first use (:func:`eager_backend`): the
+C++ negotiating core by default, which keeps a second rendezvous and a
+negotiated shutdown off jobs that never call it. ``init(ranks=...)``
+restricts the global set and ``init(process_sets=...)`` registers sets,
+as in the JAX ``init``; both start the engine at once.
+
 ``init`` also brings up the diagnostics plane, as the JAX ``init`` does:
 the host timeline (``HVD_TPU_TIMELINE``; with
 ``HVD_TPU_TIMELINE_ALL_RANKS`` a shard a rank, anchored by the clock
@@ -46,7 +53,7 @@ import datetime
 import os
 import threading
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -72,7 +79,13 @@ class _GlobalState:
         self.cross_rank = 0
         self.cross_size = 1
         self.hostname = ""
-        self.backend = ""
+        self.backend = ""               # the process group's: nccl or gloo
+        self.launched_rank = 0          # the launcher's identity, before
+        self.launched_size = 1          # any init(ranks=...) restriction
+        self.world_ranks = None         # the restricted global set
+        self.eager = None               # ops.backend.Backend, at first use
+        self.eager_lock = threading.Lock()
+        self.process_set_table = None   # common.process_sets._ProcessSetTable
         self.config: Optional[Config] = None
         self.timeline = None            # common.timeline.Timeline
         self.metrics_exporter = None    # metrics.exporter.MetricsExporter
@@ -114,8 +127,16 @@ def _backend_name(operations: str) -> str:
                      f"or GLOO")
 
 
-def init() -> None:
-    """Read the launcher identity and start the process group."""
+def init(ranks: Optional[Sequence[int]] = None,
+         process_sets: Optional[list] = None) -> None:
+    """Read the launcher identity and start the process group.
+
+    ``ranks`` restricts the global set to those launched ranks (reference
+    semantics of ``hvd.init(ranks)``, ``operations.cc:881-965``): rank and
+    size become relative to it, and a launched process outside it has
+    rank -1 but still joins the world (and the core's), so every
+    rendezvous completes. ``process_sets`` are registered at once
+    (``add_process_set`` on each, in order)."""
     with _state.lock:
         if _state.initialized:
             return
@@ -146,6 +167,20 @@ def init() -> None:
         with _remesh.phase("rendezvous"):
             dist.init_process_group(**kw)
         t_rebuild = time.perf_counter()
+        _state.launched_rank, _state.launched_size = rank, size
+        _state.world_ranks = None
+        from horovod_tpu_torch.common.process_sets import global_process_set
+        global_process_set._group = global_process_set._world_ranks = None
+        if ranks is not None and len(ranks) > 0:
+            world = sorted(set(int(r) for r in ranks))
+            if rank not in world and size == 1:
+                raise ValueError(f"init(ranks={world}): this process has "
+                                 f"rank {rank}, which is not in the list")
+            _state.world_ranks = world
+            global_process_set._world_ranks = world
+            global_process_set._group = dist.new_group(world)
+            rank = world.index(rank) if rank in world else -1
+            size = len(world)
         _state.rank, _state.size = rank, size
         _state.local_rank = ident["local_rank"]
         _state.local_size = ident["local_size"]
@@ -154,12 +189,13 @@ def init() -> None:
         _state.backend = backend
         _state.config = cfg
         _state.hostname = ident["hostname"] or os.uname().nodename
-        from horovod_tpu_torch.common.process_sets import global_process_set
         global_process_set.ranks = list(range(size))
+        from horovod_tpu_torch.common.process_sets import _ProcessSetTable
+        _state.process_set_table = _ProcessSetTable(_state)
 
         # Timeline (host-side chrome tracing): rank 0 owns the
-        # HVD_TPU_TIMELINE file (the port has no engine writing it, as the
-        # JAX package's multi-process core does). With
+        # HVD_TPU_TIMELINE file (the eager core, once started, writes its
+        # own <timeline>.core.json beside it). With
         # HVD_TPU_TIMELINE_ALL_RANKS every rank writes a shard
         # (<timeline>.rank<r>.json) instead, anchored on the wall clock
         # and the offset to rank 0 measured over the new group, merged
@@ -200,6 +236,12 @@ def init() -> None:
         # bind failure only warns.
         from horovod_tpu_torch.metrics.exporter import start_worker_exporter
         _state.metrics_exporter = start_worker_exporter(_state)
+        if _state.world_ranks is not None or process_sets:
+            # an excluded process submits nothing, yet the core's world
+            # must form: the engine starts now, on every process
+            _start_eager(_state)
+            for ps in process_sets or ():
+                _state.process_set_table.register(ps)
         ep = _remesh.current()
         if ep is not None and not ep.finished:
             ep.add_phase("rebuild", time.perf_counter() - t_rebuild)
@@ -223,6 +265,19 @@ def shutdown(force: bool = False) -> None:
             _wd.suspend()
         except Exception:
             pass
+        try:
+            # the eager engine first: the core negotiates its own end with
+            # every rank that started it (force: at once)
+            if _state.process_set_table is not None:
+                _state.process_set_table.shutdown()
+                _state.process_set_table = None
+            if _state.eager is not None:
+                eager, _state.eager = _state.eager, None
+                eager.shutdown(force=force)
+        except Exception as e:
+            from horovod_tpu_torch.common.logging import get_logger
+            get_logger().warning("shutdown: the eager engine did not stop "
+                                 "cleanly (%s)", e)
         try:
             # the exporter and its fleet thread push to peers over the
             # world's addresses: stopped before the group goes
@@ -351,21 +406,77 @@ def device() -> torch.device:
     return torch.device("cuda", lr)
 
 
+def _start_eager(st: _GlobalState):
+    with st.eager_lock:
+        if st.eager is None:
+            from horovod_tpu_torch.ops.backend import make_backend
+            st.eager = make_backend(st)
+        return st.eager
+
+
+def eager_backend():
+    """The global set's eager backend, started at its first use.
+
+    A world of one process gets ``LocalBackend``. A larger one gets the
+    core (``HVD_TPU_EAGER_BACKEND=core``, the default: built from ``cpp/``
+    at first use, then a rendezvous of its own) or the
+    ``torch.distributed`` plane (``dist``). It starts at the first eager
+    collective, ``add_process_set``, or ``init`` with ``ranks=`` or
+    ``process_sets=``, never earlier: a job that uses only the training
+    API and the mesh collectives pays for no second rendezvous and no
+    negotiated shutdown. Every rank starts it at the same call, as every
+    eager collective is made by every rank of its set. ``shutdown`` stops
+    it, so an elastic re-mesh starts a new one over the new world."""
+    st = _require_init()
+    return st.eager if st.eager is not None else _start_eager(st)
+
+
+def _started_eager():
+    return _state.eager if _state.initialized else None
+
+
+def counters() -> dict:
+    """The eager engine's control-plane counters: negotiation cycles,
+    response-cache hits/misses/evictions, fused units, bytes moved.
+    Empty before the engine started and for a backend without a
+    negotiating control plane (``LocalBackend``, the dist plane)."""
+    be = _started_eager()
+    return be.counters() if be is not None else {}
+
+
+def stragglers() -> dict:
+    """The coordinator's rank-attributed negotiation-wait report: per
+    rank, the seconds the others waited on it being the LAST to announce
+    a tensor, and how many tensors it held up. Only rank 0 of the core's
+    world accumulates it; elsewhere it is empty."""
+    fn = getattr(_started_eager(), "stragglers", None)
+    return fn() if fn is not None else {}
+
+
+def engine_state() -> dict:
+    """The engine's pending tensors, with their ready and missing ranks,
+    queue depth and join state, per coordination domain (meaningful on
+    the coordinator): what the hang watchdog's autopsy names."""
+    fn = getattr(_started_eager(), "engine_state", None)
+    return fn() if fn is not None else {}
+
+
 def metrics_snapshot() -> dict:
     """One-call observability snapshot, with the JAX package's four keys:
-    ``engine`` and ``stragglers`` are ``{}`` (the port has no negotiating
-    control plane, as the JAX package's backends without one report),
-    ``derived`` the ratios of those counters (``{}`` too), and
-    ``registry`` the process-wide metrics registry (step-time histograms,
-    throughput/MFU gauges, goodput, compression, overlap and guard
-    metrics). Needs no ``init``."""
+    the engine's raw ``counters`` as ``engine``, their ``derived`` ratios
+    (cache-hit rate, fusion), the coordinator's ``stragglers`` report
+    (all three empty until the eager engine has started, and for a
+    backend without a negotiating control plane), and ``registry`` the
+    process-wide metrics registry (step-time histograms, throughput/MFU
+    gauges, goodput, compression, overlap and guard metrics). Needs no
+    ``init``."""
     from horovod_tpu_torch.metrics.engine import derived_ratios
     from horovod_tpu_torch.metrics.registry import default_registry
-    engine: dict = {}
+    engine = counters()
     return {
         "engine": engine,
         "derived": derived_ratios(engine),
-        "stragglers": {},
+        "stragglers": stragglers(),
         "registry": default_registry().snapshot(),
     }
 
@@ -374,3 +485,55 @@ def resolve_device(dev=None) -> torch.device:
     """``None`` means the process's card (:func:`device`); anything else is
     taken as the caller's explicit choice."""
     return device() if dev is None else torch.device(dev)
+
+
+# Build and availability queries (reference: horovod_mpi_built etc.,
+# operations.cc:1085-1130): the port's planes are the core (the gloo-class
+# TCP engine), torch.distributed's gloo and NCCL, and CUDA.
+def tcp_core_built() -> bool:
+    from horovod_tpu_torch.core import core_available
+    return core_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def gloo_enabled() -> bool:
+    return gloo_built()
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def sycl_built() -> bool:
+    return False

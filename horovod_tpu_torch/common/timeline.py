@@ -11,10 +11,11 @@ Rank 0 writes ``HVD_TPU_TIMELINE``; with ``HVD_TPU_TIMELINE_ALL_RANKS``
 every rank writes a shard (:func:`shard_path`) that opens with a
 ``SHARD_META`` wall-clock anchor, merged by
 :mod:`horovod_tpu_torch.diagnostics.merge`. A shard holds its metadata,
-its anchor and the instants the program marks (:meth:`Timeline.instant`);
-the JAX package's per-collective spans (``collective_begin``/
-``collective_end``) and its negotiation activities come with the eager
-collective core (ROADMAP queue 1 item 8).
+its anchor, the instants the program marks (:meth:`Timeline.instant`) and
+a span per eager collective (``collective_begin``/``collective_end``, on
+the tensor's track, carrying the span id every rank gives it). The core's
+negotiation activities go to its own file (``<timeline>.core.json``, see
+:mod:`horovod_tpu_torch.core.bindings`).
 """
 
 from __future__ import annotations
@@ -190,6 +191,20 @@ class Timeline:
             if not self._started or self._file is None:
                 return
             self._q.put(ev)
+
+    def collective_begin(self, tensor_name: str, kind: str,
+                         span: str) -> None:
+        """Open an eager collective's span on its tensor's track (the
+        span id is the cross-rank correlation key)."""
+        self._emit("B", kind.upper(), "collective", tensor_name,
+                   {"span": span})
+
+    def collective_end(self, tensor_name: str, span: str,
+                       ok: bool = True) -> None:
+        args = {"span": span}
+        if not ok:
+            args["error"] = True
+        self._emit("E", "", "collective", tensor_name, args)
 
     def mark_cycle(self) -> None:
         """Cycle tick marker (reference: HOROVOD_TIMELINE_MARK_CYCLES)."""

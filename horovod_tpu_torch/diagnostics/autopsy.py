@@ -9,9 +9,9 @@ picture even if cross-rank fetching fails):
 
 * ``stacks_rank<r>.txt`` — ``faulthandler`` dump of every thread;
 * ``flight_rank<r>.json`` — the flight-recorder ring;
-* ``engine_rank<r>.json`` — the engine document: ``rank`` and ``ts``
-  only until the port has the eager collective core, whose counters,
-  stragglers and pending-tensor state the JAX package adds here;
+* ``engine_rank<r>.json`` — the engine document: the eager core's
+  counters, straggler report and pending-tensor state (``rank`` and
+  ``ts`` only before the engine started);
 * ``metrics_rank<r>.json`` — the full metrics snapshot;
 * ``exemplars_rank<r>.json`` — the serving ledger's tail exemplars, when
   there are some;
@@ -22,7 +22,8 @@ Rank 0 additionally scrapes every peer's ``/debug/stacks``,
 ``/debug/flight`` and ``/debug/engine`` endpoints (served by the metrics
 exporter, ``HVD_TPU_METRICS_PORT``) into ``peer_rank<r>_*`` files. Each
 rank writes ``summary_rank<r>.json``; its ``suspects`` name the tensors
-the coordinator still waits on (empty without the eager core).
+the coordinator still waits on and the ranks that have not submitted
+them (empty without the eager core).
 
 All of it is best-effort: a hung process must never hang HARDER because
 its autopsy failed.
@@ -91,12 +92,22 @@ def stacks_text() -> str:
 
 
 def engine_doc() -> Dict[str, Any]:
-    """This rank's engine document. The JAX package adds the live
-    backend's ``counters``, ``stragglers`` and ``engine_state`` where the
-    backend has them; the port's process group has none of the three
-    until its eager collective core exists, so the document is ``rank``
-    and ``ts``, as the JAX package's is on a backend without them."""
-    return {"rank": _my_rank(), "ts": time.time()}
+    """This rank's engine document: ``rank`` and ``ts``, with the eager
+    backend's ``counters``, ``stragglers`` and ``engine_state`` once it
+    has started and where it has them (the core: the pending tensors and
+    their missing ranks, which :func:`suspects_from_engine` names)."""
+    doc: Dict[str, Any] = {"rank": _my_rank(), "ts": time.time()}
+    from horovod_tpu_torch.common.basics import _started_eager
+    be = _started_eager()
+    for key in ("counters", "stragglers", "engine_state"):
+        fn = getattr(be, key, None)
+        if fn is None:
+            continue
+        try:
+            doc[key] = fn()
+        except Exception as e:
+            doc[key] = {"error": repr(e)}
+    return doc
 
 
 def metrics_doc() -> Dict[str, Any]:

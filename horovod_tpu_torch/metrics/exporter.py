@@ -17,7 +17,7 @@ from __future__ import annotations
 import json
 import threading
 from http.server import BaseHTTPRequestHandler
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
 
 from horovod_tpu_torch.common.logging import get_logger
 from horovod_tpu_torch.metrics.registry import (Registry, default_registry,
@@ -232,14 +232,19 @@ class MetricsExporter:
         contract on their own request server
         (:mod:`horovod_tpu_torch.serving.replica`).
 
-    The JAX exporter also takes ``collectors`` run before each render
-    and a separate ``ready_fn``; the port's first collector, the eager
-    core's ``EngineCollector``, brings them (ROADMAP queue 1 item 8).
+      collectors: callables run before each render to refresh derived
+        gauges (the eager engine's
+        :class:`~horovod_tpu_torch.metrics.engine.EngineCollector`).
+
+    The JAX exporter also takes a separate ``ready_fn``; no caller of the
+    port's needs one.
     """
 
     def __init__(self, registry: Optional[Registry] = None, port: int = 0,
-                 health_fn: Optional[Callable[[], dict]] = None) -> None:
+                 health_fn: Optional[Callable[[], dict]] = None,
+                 collectors: Iterable[Callable[[], None]] = ()) -> None:
         self._registry = registry or default_registry()
+        self._collectors = list(collectors)
         self._health_fn = health_fn
         self._httpd = ThreadedHTTPServer(("0.0.0.0", port), _MetricsHandler)
         self._httpd.exporter = self
@@ -253,6 +258,11 @@ class MetricsExporter:
         return self._httpd.server_address[1]
 
     def render(self) -> str:
+        for fn in self._collectors:
+            try:
+                fn()
+            except Exception as e:  # scrapes must never crash training
+                get_logger().debug("metrics collector %r failed: %r", fn, e)
         return render_prometheus(self._registry.snapshot())
 
     def health(self) -> dict:
@@ -322,9 +332,16 @@ def start_worker_exporter(state) -> Optional[MetricsExporter]:
                            "last_fed_age_s": age}
         doc["last_step"] = live.get("last_step")
         doc["last_step_age_s"] = age
-        # the JAX package probes its eager core here; the port has none
-        # yet, which the JAX exporter reports as None too
-        doc["engine_alive"] = None
+        # the eager engine answers its counters, or is not started yet
+        be = getattr(state, "eager", None)
+        engine_alive = None
+        if be is not None:
+            try:
+                be.counters()
+                engine_alive = True
+            except Exception:
+                engine_alive = False
+        doc["engine_alive"] = engine_alive
         threshold = live["timeout_s"]
         if doc["status"] == "ok" and threshold and threshold > 0 \
                 and age is not None and age > threshold:
@@ -334,9 +351,24 @@ def start_worker_exporter(state) -> Optional[MetricsExporter]:
         return doc
 
     registry = default_registry()
+    # a re-meshed world must not serve the dead engine's last values as
+    # live state: the mirror gauges are filled again by the NEW
+    # collector at its first scrape (hvd_stall_warnings_total, a
+    # cumulative counter of another prefix, survives)
+    for prefix in ("hvd_engine_", "hvd_straggler_"):
+        registry.drop_prefix(prefix)
+    for name in ("hvd_autotune_fusion_bytes", "hvd_autotune_cycle_ms",
+                 "hvd_autotune_hierarchical", "hvd_autotune_cache_enabled"):
+        registry.drop_prefix(name)
+    from horovod_tpu_torch.common.basics import (counters as _counters,
+                                                 stragglers as _stragglers)
+    from horovod_tpu_torch.metrics.engine import EngineCollector
+    collector = EngineCollector(_counters, registry=registry,
+                                stragglers_fn=_stragglers)
     try:
         exp = MetricsExporter(registry=registry, port=port,
-                              health_fn=health)
+                              health_fn=health,
+                              collectors=[collector.collect])
         exp.start()
     except (OSError, OverflowError) as e:  # squat or base+local_rank > 65535
         get_logger().warning(
@@ -357,7 +389,8 @@ def start_worker_exporter(state) -> Optional[MetricsExporter]:
             pass
         exp.fleet = FleetAggregator(
             rank=state.rank, size=state.size, base_port=base,
-            registry=registry, generation=gen,
+            registry=registry, collectors=[collector.collect],
+            generation=gen,
             cross_size=state.cross_size).start()
     get_logger().info("metrics exporter serving on :%d/metrics", exp.port)
     return exp

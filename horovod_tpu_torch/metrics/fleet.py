@@ -37,7 +37,7 @@ import os
 import threading
 import time
 import urllib.request
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from horovod_tpu_torch.common.logging import get_logger
 from horovod_tpu_torch.metrics.registry import (Registry, default_registry,
@@ -102,14 +102,14 @@ class FleetAggregator:
       generation: world generation stamped into pushed docs (elastic
         re-mesh bumps it; mismatched docs are rejected).
       push_interval/arity: override the env knobs (tests).
-
-    The JAX aggregator also runs the exporter's collectors before each
-    local snapshot; the port has none until the eager core's
-    ``EngineCollector`` (ROADMAP queue 1 item 8).
+      collectors: refreshed before each local snapshot (the callables
+        the exporter runs at scrape time, so a pushed doc is as fresh as
+        a scraped one).
     """
 
     def __init__(self, rank: int, size: int, base_port: int,
                  registry: Optional[Registry] = None,
+                 collectors: Optional[List[Callable[[], None]]] = None,
                  generation: int = 0,
                  push_interval: Optional[float] = None,
                  arity: Optional[int] = None,
@@ -122,6 +122,7 @@ class FleetAggregator:
         self.interval = push_interval or push_interval_s()
         self.stale_after = 3.0 * self.interval
         self._reg = registry or default_registry()
+        self._collectors = list(collectors or [])
         self.parent = parent_of(self.rank, self.arity)
         self.children = children_of(self.rank, self.size, self.arity)
         # multi-host without a rank->host map: upstream addresses
@@ -228,6 +229,11 @@ class FleetAggregator:
         the document pushed upstream, and what ``/metrics/fleet``
         renders on rank 0 (scrapes pass ``consume_window=False`` so
         they observe without advancing the push window)."""
+        for fn in self._collectors:
+            try:
+                fn()
+            except Exception as e:
+                get_logger().debug("fleet collector %r failed: %r", fn, e)
         snap = self._reg.snapshot()
         per_rank = {str(self.rank): self._local_per_rank(
             snap, consume=consume_window)}

@@ -11,7 +11,8 @@ order. The JAX array-level ``device_*`` functions and their jit cache have
 no counterpart: eager PyTorch has nothing to compile.
 
 Numerics follow the JAX functions: ``AVERAGE`` is the sum divided by the
-axis size (as ``pmean``), ``PRODUCT`` gathers and multiplies, the ring
+axis size (as ``pmean``), ``PRODUCT`` gathers and multiplies, ``ADASUM``
+gathers and folds the contributions in the Adasum tree, the ring
 folds in ring order, and the quantized and hierarchical paths quantize only
 already-reduced slices (one quantization error of the exact sum). An axis
 of size 1 still runs its collective. With NCCL the collectives run on
@@ -120,8 +121,11 @@ def start_preduce(x: torch.Tensor, axis, op: ReduceOp = ReduceOp.SUM,
         return Pending(None, lambda: torch.prod(g.wait(), dim=0,
                                                 dtype=x.dtype))
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "op=Adasum arrives with the eager-collectives slice of the port")
+        # every contribution gathered, folded in the Adasum tree (the JAX
+        # preduce's adasum_allreduce_along)
+        from horovod_tpu_torch.ops.adasum import adasum_tree_reduce
+        g = _gathered(x, axis)
+        return Pending(None, lambda: adasum_tree_reduce(g.wait()))
     raise ValueError(f"Unsupported reduce op: {op}")
 
 

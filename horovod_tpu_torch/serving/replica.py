@@ -518,8 +518,13 @@ class ReplicaServer:
         deadline_ms = doc.get("deadline_ms")
         deadline_s = float(deadline_ms) / 1000.0 \
             if deadline_ms is not None else None
-        # in-flight dedup: a hedged duplicate joins the live request
+        # in-flight dedup: a hedged duplicate joins the live request;
+        # one answered since the cache check above replays its response
+        # (the first copy caches, then leaves _pending, in that window)
         with self._pending_lock:
+            cached = self._replay_locked(req_id)
+            if cached is not None:
+                return 200, cached
             pending = self._pending.get(req_id)
             fresh = pending is None
             if fresh:
@@ -651,6 +656,11 @@ class ReplicaServer:
         deadline_s = float(deadline_ms) / 1000.0 \
             if deadline_ms is not None else None
         with self._pending_lock:
+            # answered since the cache check above (the first copy caches,
+            # then leaves _pending): replay it, never decode twice
+            cached = self._replay_locked(req_id)
+            if cached is not None:
+                return 200, cached
             pending = self._pending.get(req_id)
             fresh = pending is None
             if fresh:
@@ -715,14 +725,19 @@ class ReplicaServer:
 
     def _cached_response(self, req_id: str) -> Optional[dict]:
         with self._pending_lock:
-            resp = self._resp_cache.get(req_id)
-            if resp is not None:
-                self._resp_cache.move_to_end(req_id)
-                smetrics._reg().counter(
-                    "hvd_serving_duplicate_hits_total",
-                    help="hedged/retried duplicates answered from the "
-                         "idempotent response cache").inc()
-            return resp
+            return self._replay_locked(req_id)
+
+    def _replay_locked(self, req_id: str) -> Optional[dict]:
+        """The cached response of an answered id (``_pending_lock``
+        held), counted as a duplicate hit."""
+        resp = self._resp_cache.get(req_id)
+        if resp is not None:
+            self._resp_cache.move_to_end(req_id)
+            smetrics._reg().counter(
+                "hvd_serving_duplicate_hits_total",
+                help="hedged/retried duplicates answered from the "
+                     "idempotent response cache").inc()
+        return resp
 
     def _cache_response(self, req_id: str, resp: dict) -> None:
         with self._pending_lock:

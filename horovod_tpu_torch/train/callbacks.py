@@ -59,8 +59,9 @@ class MetricAverageCallback:
     ``MetricAverageCallbackImpl:49-93``): every numeric value, in fp64,
     over the world, in one ``torch.distributed`` allreduce (keys in sorted
     order, so every rank sums the same metrics together). The JAX callback
-    takes one eager allreduce a metric; the port's eager collectives
-    arrive with ROADMAP queue 1 item 8."""
+    takes one eager allreduce a metric; this one stays on the process
+    group, so a loop that uses no eager collective starts no eager
+    engine for its metrics."""
 
     def on_epoch_end(self, logs: Dict[str, Any]) -> Dict[str, Any]:
         if not is_initialized() or size() == 1:

@@ -32,6 +32,11 @@ Regimes of the gradient sync, as in the JAX package:
   a quantized bucket's bytes on the compression metrics.
 * **one process**: the sync is the identity (``LocalBackend``'s scaled
   identity).
+* **Adasum** (``op=Adasum``, either of the first two regimes; the JAX
+  ``AdasumGradTransform``): each gradient's contributions are gathered
+  (along the axis, or by the eager ``allgather`` as ``adasum.<i>``) and
+  folded in the Adasum tree (:mod:`horovod_tpu_torch.ops.adasum`);
+  pre/postscale do not apply, as in the JAX package.
 
 With ``compression=ErrorFeedback(codec)`` every regime first replaces the
 gradient by ``qdq(grad + residual)`` and carries the error in a
@@ -352,7 +357,10 @@ class _DistributedMixin:
         pairs = [(i, self._hvd_prepared(i)) for i in range(len(params))]
         pairs = [(i, g) for i, g in pairs if g is not None]
         grads = [g for _, g in pairs]
-        if self._hvd_regime == "axis":
+        if self._hvd_regime == "adasum":
+            from horovod_tpu_torch.ops.adasum import adasum_grads
+            grads = adasum_grads(grads, self._hvd_process_set, self._hvd_axis)
+        elif self._hvd_regime == "axis":
             grads = _axis_allreduce(grads, self._hvd_op, self._hvd_axis,
                                     self._hvd_prescale, self._hvd_postscale)
         else:
@@ -399,7 +407,8 @@ def _wrap(optimizer: torch.optim.Optimizer, named_parameters, compression,
     out._hvd_postscale = float(postscale)
     out._hvd_multi = GradAccumulator(backward_passes_per_step)
     out._hvd_params = _ordered_params(optimizer, named_parameters)
-    out._hvd_regime = ("axis" if axis is not None
+    out._hvd_regime = ("adasum" if op == ReduceOp.ADASUM
+                       else "axis" if axis is not None
                        else "eager" if _world() > 1 else "identity")
     out._hvd_hooks = None
     if out._hvd_regime == "eager":
@@ -471,14 +480,11 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         raise TypeError(f"DistributedOptimizer wraps a torch.optim."
                         f"Optimizer or a FusedOptSpec, got "
                         f"{type(optimizer).__name__}")
-    if op == ReduceOp.ADASUM:
-        if compression is not Compression.none:
-            raise ValueError(
-                "op=Adasum has no compression seam (the scaled-add tree "
-                "needs exact contributions); drop compression= or use a "
-                "different op")
-        raise NotImplementedError(
-            "op=Adasum arrives with the eager-collectives slice of the port")
+    if op == ReduceOp.ADASUM and compression is not Compression.none:
+        raise ValueError(
+            "op=Adasum has no compression seam (the scaled-add tree "
+            "needs exact contributions); drop compression= or use a "
+            "different op")
     if named_parameters is not None:
         named_parameters = list(named_parameters)
     if autotune:

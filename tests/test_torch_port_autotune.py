@@ -609,10 +609,10 @@ def test_autotune_mesh_env_enables_search_by_default(world1, monkeypatch):
     assert not isinstance(hvd.make_overlap_train_step(
         loss_fn, mesh, autotune=False), AutotunedStep)
     w = torch.nn.Parameter(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        # the env default does not raise for Adasum's missing seam; the
-        # port's Adasum itself is not there yet
-        hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1), op=hvd.Adasum)
+    # the env default does not raise for Adasum's missing seam: the
+    # optimizer syncs by Adasum, untuned
+    assert hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
+                                    op=hvd.Adasum)._hvd_regime == "adasum"
     pstep = hvd.make_pipeline_train_step(lambda p, x: x,
                                          lambda y, t: y.sum(), n_layers=2,
                                          device="cpu")

@@ -293,8 +293,8 @@ def test_hier_refuses_what_jax_refuses():
                       compression=JBlockInt8Quantizer())
     with pytest.raises(ValueError, match="psum | ring | hier"):
         BucketReducer(_fake_axis(2), algorithm="tree")
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        mc.preduce(x, _fake_axis(2), ReduceOp.ADASUM)
+    with pytest.raises(ValueError, match="Unsupported reduce op"):
+        mc.preduce(x, _fake_axis(2), 99)
 
 
 # -- the bucket planner (in process) --------------------------------------------

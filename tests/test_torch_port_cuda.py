@@ -298,6 +298,76 @@ def test_preduce_quantized_on_nccl_world_of_one(nccl_mesh):
     assert float((got.cpu() - ref).abs().max()) <= 1e-6
 
 
+def test_dist_plane_on_nccl_world_of_one(nccl_mesh):
+    """The eager ``torch.distributed`` plane over the NCCL group of one,
+    on CUDA tensors: every op's result is ``LocalBackend``'s, on the card
+    and in the input's dtype, for fp32, bf16 and int64."""
+    from horovod_tpu_torch.ops.backend import LocalBackend
+    from horovod_tpu_torch.ops.dist_backend import DistBackend
+    from horovod_tpu_torch.ops.reduce_op import ReduceOp
+    d = torch.device("cuda", 0)
+    plane, local = DistBackend(), LocalBackend()
+    try:
+        for dt in (torch.float32, torch.bfloat16, torch.int64):
+            x = (_rand(d, 6, 5, seed=40) * 10).to(dt)
+            ops = [ReduceOp.SUM, ReduceOp.MIN, ReduceOp.MAX]
+            if dt.is_floating_point:
+                ops.append(ReduceOp.AVERAGE)
+            got = [plane.allreduce_async("x", x, op).wait() for op in ops]
+            want = [local.allreduce_async("x", x, op).wait() for op in ops]
+            got += [plane.grouped_allreduce_async(["a", "b"], [x, x[0]],
+                                                  ReduceOp.SUM).wait()[1],
+                    plane.allgather_async("g", x).wait(),
+                    plane.broadcast_async("b", x, 0).wait(),
+                    plane.alltoall_async("t", x, [6]).wait()[0],
+                    plane.reducescatter_async("r", x, ReduceOp.SUM).wait()]
+            want += [x[0], x, x, x, x]
+            for g, w in zip(got, want):
+                assert g.is_cuda and g.dtype == dt and torch.equal(g, w)
+    finally:
+        plane.shutdown()
+
+
+def _w_eager_nccl():
+    """One rank of the NCCL eager plane over two cards: the eager API on
+    this rank's card against host references."""
+    import horovod_tpu_torch as hvd
+    r, n = hvd.rank(), hvd.size()
+    d = hvd.device()
+    x = torch.arange(12.0, device=d).reshape(3, 4) + r
+    out = hvd.allreduce(x, op=hvd.Sum, name="x")
+    ag = hvd.allgather(torch.full((r + 1, 2), float(r), device=d), name="ag")
+    b = hvd.broadcast(x, root_rank=1, name="b")
+    t, recv = hvd.alltoall(torch.arange(float(n * 2), device=d) + 10 * r,
+                           name="t")
+    grp = hvd.grouped_allreduce([x, x.to(torch.bfloat16)], name="g")
+    assert all(o.device == d for o in (out, ag, b, t, *grp))
+    return {"out": out.cpu().numpy(), "ag": ag.cpu().numpy(),
+            "b": b.cpu().numpy(), "t": t.cpu().numpy(),
+            "g0": grp[0].cpu().numpy(), "g1": grp[1].float().cpu().numpy()}
+
+
+def test_dist_plane_over_nccl_two_cards(tmp_path):
+    """Two cards, one NCCL rank each, ``HVD_TPU_EAGER_BACKEND=dist``: the
+    eager API keeps CUDA tensors on their card and gives the host
+    references."""
+    from torch_port_worker import spawn_world
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ranks = spawn_world(__file__, "eager_nccl", 2, tmp_path,
+                        {"HOROVOD_TPU_OPERATIONS": "NCCL",
+                         "HVD_TPU_EAGER_BACKEND": "dist"}, timeout=300)
+    x = [np.arange(12.0).reshape(3, 4) + r for r in range(2)]
+    for r, res in enumerate(ranks):
+        np.testing.assert_array_equal(res["out"], x[0] + x[1])
+        np.testing.assert_array_equal(res["ag"], [[0, 0], [1, 1], [1, 1]])
+        np.testing.assert_array_equal(res["b"], x[1])
+        np.testing.assert_array_equal(res["t"], [2 * r, 2 * r + 1,
+                                                 10 + 2 * r, 11 + 2 * r])
+        np.testing.assert_array_equal(res["g0"], (x[0] + x[1]) / 2)
+        np.testing.assert_array_equal(res["g1"], (x[0] + x[1]) / 2)
+
+
 @pytest.mark.parametrize("compression", [None, "int8"])
 def test_bucketed_grad_sync_on_nccl_world_of_one(nccl_mesh, compression):
     """Three buckets of a small tree: dense, the average of one rank is the
@@ -847,7 +917,8 @@ if __name__ == "__main__":
     import sys
     from torch_port_worker import worker_main
     sys.exit(worker_main({"ring": _w_ring, "pp_nccl": _w_pp_nccl,
-                          "nccl_peer_dies": _w_nccl_peer_dies},
+                          "nccl_peer_dies": _w_nccl_peer_dies,
+                          "eager_nccl": _w_eager_nccl},
                          sys.argv[1:]))
 
 

@@ -38,8 +38,13 @@ BACKSTOP_WORKER = textwrap.dedent("""
         assert float(out[0]) == hvd.size()
         state.step = step + 1
         state.save()
-        if gen == 0 and hvd.rank() == 1 and step == 1:
-            os._exit(17)
+        if gen == 0 and step == 1:
+            # a fence after the commit: rank 1 dies only once rank 0 has
+            # committed step 2 too (the driver tears rank 0 down as soon
+            # as rank 1 is gone)
+            preduce(torch.ones(1), axis)
+            if hvd.rank() == 1:
+                os._exit(17)
     with open({log!r}, "a") as f:
         f.write(json.dumps(dict(rank=hvd.rank(), gen=gen, start=start,
                                 step=state.step)) + "\\n")

@@ -201,7 +201,8 @@ def test_fused_rejects_unsupported_combinations():
 
 
 def test_wrapper_rejects_adasum_and_accumulation():
-    """Adasum raises as in the JAX package; ``backward_passes_per_step=2``
+    """Adasum with a codec raises as in the JAX package, and in a world
+    of one steps on the gradient itself; ``backward_passes_per_step=2``
     steps as ``optax.MultiSteps`` does: the first pass leaves the
     parameters, the second applies the mean of the two passes' gradients
     (wrapped torch optimizer and fused optimizer alike)."""
@@ -209,8 +210,12 @@ def test_wrapper_rejects_adasum_and_accumulation():
     with pytest.raises(ValueError, match="Adasum"):
         th.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), op=th.Adasum,
                                 compression=Compression.int8)
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        th.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), op=th.Adasum)
+    ada = th.DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), op=th.Adasum)
+    ps[0].grad = torch.ones(4)
+    ada.step()
+    assert torch.equal(ps[0].detach(), torch.full((4,), -0.1))
+    ps[0].data.zero_()
+    ps[0].grad = None
     rng = np.random.RandomState(9)
     grads = [_param_tree(rng) for _ in range(4)]
     for spec, make in (

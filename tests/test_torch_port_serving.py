@@ -375,6 +375,24 @@ def test_replica_concurrent_duplicates_join_one_decode(gen_replica):
     assert all(resp["tokens_emitted"] == 6 for _c, resp in results)
 
 
+def test_duplicate_answered_after_its_cache_check_is_not_decoded_again(
+        gen_replica, monkeypatch):
+    """A duplicate whose cache check ran before the first copy answered,
+    and whose in-flight check runs after that copy left ``_pending``,
+    replays the cached response; it never decodes the id a second time
+    (the JAX replica's window, ROADMAP queue 3 item 18)."""
+    first = gen_replica.handle_generate({"id": "w1", "prompt": [1, 2, 3],
+                                         "max_new": 3})
+    assert first[0] == 200
+    monkeypatch.setattr(gen_replica, "_cached_response", lambda rid: None)
+
+    def no_second_decode(*a, **k):
+        raise AssertionError("an answered id was submitted again")
+    monkeypatch.setattr(gen_replica.engine, "submit", no_second_decode)
+    assert gen_replica.handle_generate({"id": "w1", "prompt": [1, 2, 3],
+                                        "max_new": 3}) == first
+
+
 def test_generate_replica_under_thread_stress_keeps_its_books(gen_replica):
     """More client threads than cores, duplicates of every id, a short
     switch interval: every copy of an id gets the one oracle stream,

@@ -127,6 +127,66 @@ def _spawn(group, n, out_dir, extra_env, timeout, script):
             for r in range(n)]
 
 
+def launch_env_world(argv, n: int, out_dir, extra_env=None,
+                     timeout: float = 120, name: str = "world"):
+    """``n`` processes of ``argv`` with a launcher's identity in their
+    environment (``HOROVOD_RANK``/``SIZE`` and ``HVD_TPU_*``), the JAX
+    core's coordinator and the port's rendezvous on one held port (a
+    world runs one package or the other). Fails with every rank's log
+    tail unless every rank exits 0."""
+    held = reserve_port()
+    port = str(held.getsockname()[1])
+    procs, logs = [], []
+    try:
+        for r in range(n):
+            env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                       HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
+                       HVD_TPU_RANK=str(r), HVD_TPU_SIZE=str(n),
+                       HVD_TPU_LOCAL_RANK=str(r), HVD_TPU_LOCAL_SIZE=str(n),
+                       HVD_TPU_COORD_ADDR="127.0.0.1",
+                       HVD_TPU_COORD_PORT=port,
+                       HVD_TPU_RENDEZVOUS_ADDR="127.0.0.1",
+                       HVD_TPU_RENDEZVOUS_PORT=port,
+                       HOROVOD_TPU_OPERATIONS="GLOO", OMP_NUM_THREADS="1")
+            env.update(extra_env or {})
+            log = open(os.path.join(str(out_dir), f"{name}.rank{r}.log"),
+                       "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], env=env, cwd=str(out_dir),
+                stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True))
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or \
+                    any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.05)
+    finally:
+        held.close()
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{name} failed:\n" + "\n".join(
+            f"rank {r} exit {p.returncode}:\n{t[-3000:]}"
+            for r, (p, t) in enumerate(zip(procs, texts))))
+
+
+def build_core() -> str:
+    """The port's core library, built here first if it is missing, so a
+    world's ranks find it instead of spending their timeout on the build."""
+    from horovod_tpu_torch.core import library_path
+    return library_path()
+
+
 def log_time(what: str) -> None:
     """One line of a rank's log: seconds since the process started."""
     print(f"[worker] {what} at {time.monotonic() - _T0:.2f} s", flush=True)
@@ -150,10 +210,11 @@ def leave(hvd) -> None:
     os._exit(0)
 
 
-def worker_main(workers, argv) -> int:
+def worker_main(workers, argv, init_kwargs=None) -> int:
     """``--worker GROUP --out DIR``: one rank of a gloo world (the
     launcher's identity in the environment) runs ``workers[GROUP]`` and
-    saves its arrays to ``DIR/GROUP.rank<r>.npz``."""
+    saves its arrays to ``DIR/GROUP.rank<r>.npz`` (``r`` the launched
+    rank). ``init_kwargs(GROUP)`` gives ``init``'s arguments, if any."""
     import argparse
 
     import torch
@@ -165,12 +226,14 @@ def worker_main(workers, argv) -> int:
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     log_time("imported")
-    hvd.init()
+    hvd.init(**(init_kwargs(args.worker) if init_kwargs else {}))
     log_time("initialized")
     res = workers[args.worker]()
     log_time("ran its cases")
     assert not [m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "horovod_tpu")], "a worker imported JAX"
-    np.savez(os.path.join(args.out, f"{args.worker}.rank{hvd.rank()}.npz"),
+    from horovod_tpu_torch.common.basics import _state
+    np.savez(os.path.join(args.out,
+                          f"{args.worker}.rank{_state.launched_rank}.npz"),
              **res)
     leave(hvd)
