@@ -377,6 +377,68 @@ launch counts in ``eager_launches``:
   0's exporter; the kernels launch 4 and 1 times a step on each rank. It
   prints the step's milliseconds split into staging, wire and compute.
 
+The self-healing slice adds six phases (host, socket and process code: no
+kernel of its own), each under a fault plan (``HVD_TPU_FAULT_PLAN``), each
+rank's launches in ``chaos_launches``; every training rank must launch
+``flash_attn_fwd`` n_layers times and ``xent_fwd`` once a forward:
+
+* ``[chaos_soak]``: three elastic gloo ranks of
+  ``tests/torch_port_elastic_worker.py`` on ``cuda:0`` under the port's
+  driver, the flagship at full width and depth, the guarded overlap step,
+  rank 0 saving the model every 2 steps, under its ``soak_plan``: a grad
+  NaN at step 3 on every rank (the guard skips it with the parameters and
+  the optimizer state bit-equal), one ``checkpoint.write`` error on rank 0
+  (its save fails with the injected error and the next save commits), a
+  KV blackout over each arming's first two requests (ridden out by the
+  retries), and rank 1 killed after step 3 with a ``{rank}`` marker
+  (healed in place by a replacement that is not killed again). Checks:
+  each process's ``hvd_chaos_injected_total`` equals the plan's schedule,
+  the digests agree, the journal replays to the driver's final state; it
+  prints the kill to the healed world's first step, by phase.
+* ``[preempt_drain]``: the same trainer at depth 2 (``--layers 2``):
+  a chaos ``preemption`` notice on rank 2 is published by its watcher at
+  its first poll, the driver plans the world around it at the first
+  commit (the exit ``DRAINED``, counted
+  under ``hvd_drain_notices_total{source="chaos"}``, the survivors'
+  ``failure_detect`` under DRAIN_DETECT_MAX_S, the slot reserved for
+  DRAIN_COOLDOWN_S and then re-admitted); beside it on the card, the same
+  run with rank 2 killed after that commit instead. It prints the handled
+  drain and the kill to the end of the survivors' re-mesh (the healed
+  world's first step done), the drain to the re-admitted process's first
+  step, and each run's phases.
+* ``[driver_chaos]``: ``python -m horovod_tpu_torch.runner.launch -H
+  localhost:3 --min-np 3`` with the supervisor: the ``driver`` seam kills
+  the driver at a poll tick inside training; the supervisor respawns it
+  with ``--takeover``, the workers ride the outage out (no re-mesh, their
+  PIDs unchanged), finish, and each wrote an autopsy during the outage
+  whose ``driver_outage`` is set.
+* ``[autopilot_straggler]``, run beside ``[driver_chaos]`` on the card:
+  three elastic ranks each training its own
+  replica at depth 2 (``--local``: no collective a step, a StepTimer
+  around it), rank 2 stalled 1.2 s a step in its timed window for five
+  steps; with ``HVD_TPU_AUTOPILOT=act`` the fleet tree's
+  ``persistent_straggler`` finding fires ``straggler-drain``, the driver
+  drains rank 2 and re-admits its slot. Checks: exactly one fired
+  ``straggler-drain`` decision in ``actions_rank0.jsonl``, in
+  ``hvd_autopilot_decisions_total`` and in ``python -m
+  horovod_tpu_torch.metrics history --actions``; it prints finding to
+  action and action to the healed step.
+* ``[transport_chaos_2rank]``: two ranks of this script (``--gloo-rank
+  DIR transport_chaos``) drive the C++ core directly on ``cuda:0`` tensors
+  under ``tests/torch_port_chaos_worker.py``'s plan, after one flagship
+  forward at depth 2 each: a ``transport.recv`` delay on rank 1 (counted
+  by the core: 4) leaves the grouped allreduce equal to its host
+  reference; a ``transport.send`` bit_flip fails the next collective,
+  rank 0 naming peer 1 and the checksum (one failure counted).
+* ``[rollout_canary]``: a ``ReplicaFleet`` of two generate-mode flagship
+  replicas over a store, behind a ``Router`` with closed-loop clients, a
+  ``RolloutController`` whose promote/rollback hooks the autopilot drives
+  (``HVD_TPU_AUTOPILOT=act``): a candidate whose canary slot answers its
+  first ROLLOUT_POISON requests with an injected ``serving.request``
+  error is rolled back (every slot pinned to the incumbent), then a
+  clean candidate is promoted through every stage. Zero failed requests;
+  the kernels never run (the decode path is plain torch).
+
 Every phase prints one line; any failure raises and exits non-zero, and
 nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
@@ -572,6 +634,17 @@ EAGER_ADASUM_RTOL = 1e-5  # the core's Adasum against the host combine
 EAGER_TIMEOUT_S = 600     # the hvdrun call of both two-rank phases
 REMESH_PHASES = ("failure_detect", "drain", "rendezvous", "rebuild",
                  "restore", "first_step")
+CHAOS_STEPS = 6           # [chaos_soak]: steps at full depth
+CHAOS_LAYERS = 2          # the other self-healing phases' depth
+DRAIN_STEPS = 10          # [preempt_drain]: steps of the drain run at least
+DRAIN_COOLDOWN_S = 2      # HVD_TPU_DRAIN_COOLDOWN_S, read by the driver
+DRAIN_DETECT_MAX_S = 0.05  # a planned drain's failure_detect (the JAX test)
+DRAIN_POLL_S = 0.2        # HVD_TPU_PREEMPTION_POLL_S
+DRIVER_CHAOS_STEPS = 16   # [driver_chaos]: steps at least, a quarter
+DRIVER_CHAOS_AFTER = 8    # second's sleep each, and this many after the kill
+STRAGGLER_STEPS = 12      # [autopilot_straggler]: local steps a rank at least
+ROLLOUT_POISON = 12       # [rollout_canary]: injected errors on the canary
+CHAOS_TIMEOUT_S = 300     # each driver run of the self-healing phases
 
 
 def check(ok: bool, msg: str) -> None:
@@ -579,7 +652,12 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_T0 = time.perf_counter()
+_FIRST_SAID = {}  # phase -> seconds since the script began, at its 1st line
+
+
 def say(phase: str, **kv) -> None:
+    _FIRST_SAID.setdefault(phase, time.perf_counter() - _T0)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
 
@@ -4834,6 +4912,704 @@ def phase_elastic_recover(torch, cfg, card: str) -> dict:
     return launches
 
 
+def _per_forward(label: str, launches: dict, n_layers: int,
+                 min_forwards: dict) -> None:
+    """Every rank launched ``flash_attn_fwd`` n_layers times and
+    ``xent_fwd`` once a forward, at least ``min_forwards[rank]`` times."""
+    for r, got in launches.items():
+        f, x = got["flash_attention_fwd"], got["xent_fwd"]
+        check(x >= min_forwards.get(r, 1) and f == n_layers * x,
+              f"{label}: rank {r} launched flash {f} and xent {x} "
+              f"(n_layers {n_layers}, at least {min_forwards.get(r, 1)} "
+              f"forwards)")
+
+
+def _elastic_chaos_run(worker, out: str, label: str, extra, env) -> tuple:
+    """One driver run of the elastic trainer on ``cuda:0`` (three one-slot
+    ranks of ``localhost``); fails ``label`` unless the driver returned 0.
+    Returns the events, the driver and its seconds."""
+    from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
+    from horovod_tpu_torch.runner.hosts import HostInfo
+    cmd = worker.command(out, "--device", "cuda:0", "--rows", ELASTIC_ROWS,
+                         *extra)
+    rc, driver, secs = worker.run_driver(
+        FixedHosts([HostInfo("localhost", 3)]), cmd, out, min_np=2,
+        max_np=3, reset_limit=4, timeout=CHAOS_TIMEOUT_S,
+        env=dict({"HVD_TPU_GLOO_TIMEOUT_SECONDS":
+                  str(ELASTIC_GLOO_TIMEOUT_S)}, **env))
+    evs = worker.events(out)
+    check(rc == 0, f"{label}: the driver returned {rc}: {evs[-20:]}")
+    return evs, driver, secs
+
+
+def _evsum(evs) -> str:
+    """The trainer's events in brief (kind, rank, pid, step, generation,
+    seconds from the first), for a failed check's message."""
+    t0 = evs[0]["t"] if evs else 0.0
+    return "; ".join(
+        f"{e['kind']} r{e.get('rank')} p{e['pid']} s{e.get('step')} "
+        f"g{e.get('generation')} +{e['t'] - t0:.2f}"
+        for e in evs if e["kind"] != "tick")[-6000:]
+
+
+def _first_t(label: str, evs, what: str, pred) -> float:
+    """The time of the first event ``pred`` takes, or a failed check."""
+    ts = [e["t"] for e in evs if pred(e)]
+    check(bool(ts), f"{label}: no {what}: {_evsum(evs)}")
+    return min(ts)
+
+
+def _healed_after(label: str, evs, dones, first: dict, trigger: str):
+    """When the last survivor's re-mesh of ``trigger`` ended (its flight
+    record: the healed world's first step done), and when the slot's new
+    process completed its first step."""
+    survivors = {d["pid"] for d in dones.values()} & set(first.values())
+    ends = [ep["ts"] for d in dones.values() if d["pid"] in survivors
+            for ep in d["chaos"]["episodes"] if ep["trigger"] == trigger]
+    check(len(ends) >= 2, f"{label}: {trigger} episodes {ends}: "
+                          f"{_evsum(evs)}")
+    full = _first_t(label, evs, "step of the re-admitted process",
+                    lambda e: e["kind"] == "step"
+                    and e["pid"] not in set(first.values()))
+    return max(ends), full
+
+
+def _first_pids(evs) -> dict:
+    return {b["rank"]: b["pid"] for b in evs
+            if b["kind"] == "boot" and b["generation"] == "0"}
+
+
+def _episode_phases(dones, trigger: str) -> dict:
+    """``{rank: {phase: s}}`` of each done rank's episodes of ``trigger``."""
+    out = {}
+    for r, d in dones.items():
+        for ep in d["chaos"]["episodes"]:
+            if ep["trigger"] == trigger:
+                out[r] = {k[:-2]: ep[k] for k in ep
+                          if k.endswith("_s") and ep[k] is not None}
+    return out
+
+
+def phase_chaos_soak(torch, card: str) -> dict:
+    """[chaos_soak]: the module docstring's compound plan over three
+    elastic gloo ranks at full width and depth. Returns each final rank's
+    launches."""
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.checkpoint import ShardedCheckpointer
+    from horovod_tpu_torch.runner.elastic import journal
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chaos_soak_") as out:
+        evs, driver, secs = _elastic_chaos_run(
+            worker, out, "chaos_soak",
+            ["--steps", CHAOS_STEPS, "--guard", "--ckpt-every", 2],
+            {"HVD_TPU_FAULT_PLAN": json.dumps(worker.soak_plan(out))})
+        jstate = journal.load(os.path.join(out, "journal",
+                                           journal.JOURNAL_NAME))
+        latest = ShardedCheckpointer(os.path.join(out, "model_ckpt"),
+                                     rank=0, world_size=1).latest_step()
+    first = _first_pids(evs)
+    boots = [e for e in evs if e["kind"] == "boot"]
+    dones = {e["rank"]: e for e in evs if e["kind"] == "done"}
+    skips = [e for e in evs if e["kind"] == "guard_skip"]
+    ckpts = [(e["step"], e["ok"]) for e in evs if e["kind"] == "ckpt"]
+    check(sorted(first) == [0, 1, 2] and len(boots) == 4,
+          f"chaos_soak: boots {boots}")
+    check(sorted(dones) == [0, 1, 2] and all(
+        d["size"] == 3 and d["step"] == CHAOS_STEPS
+        for d in dones.values()), f"chaos_soak: ends {dones}")
+    killed = set(first.values()) - {d["pid"] for d in dones.values()}
+    check(killed == {first[1]}, f"chaos_soak: killed {killed}, first "
+                                f"{first}, ends {dones}")
+    ticks = [e for e in evs if e["kind"] == "tick" and e["pid"] in killed]
+    check(ticks[-1]["step"] == 3, f"chaos_soak: rank 1 died after step "
+                                  f"{ticks[-1]['step']}")
+    check(sorted(e["rank"] for e in skips) == [0, 1, 2] and all(
+        e["step"] == 3 and e["expected"] and e["same_state"] for e in skips),
+        f"chaos_soak: guard skips {skips}")
+    check(ckpts == [(2, False), (4, True), (6, True)] and latest == 6,
+          f"chaos_soak: saves {ckpts}, latest commit {latest}")
+    injected = {}
+    for r, d in dones.items():
+        # the plan's schedule, per process: the blackout's two requests
+        # each time it armed the plan (a survivor renumbered in the heal
+        # arms again), the NaN once a rank (the {rank} markers keep it
+        # off the replacement), the write error on rank 0
+        want = {"kv.request/blackout": 2 * d["chaos"]["armed"]}
+        if d["pid"] in first.values():
+            want["grad/nan"] = 1
+        if r == 0:
+            want["checkpoint.write/io_error"] = 1
+        injected[r] = d["chaos"]["injected"]
+        check(injected[r] == want, f"chaos_soak: rank {r} injected "
+                                   f"{injected[r]}, the plan says {want}")
+    digests = {d["digest"] for d in dones.values()}
+    check(len(digests) == 1, f"chaos_soak: replicas differ {digests}")
+    exits = sorted(r["state"] for r in jstate.exits.values())
+    check(jstate.clean_exit == 0 and jstate.unknown == 0
+          and jstate.world_gen == driver.final_generation
+          and jstate.reset_count == driver._registry.reset_count
+          and not jstate.live_workers() and jstate.blocklist == {}
+          and exits.count("FAILURE") == 1 and set(exits) == {
+              "FAILURE", "SUCCESS"} and jstate.world["doc"]["size"] == 3,
+          f"chaos_soak: the journal's replay {jstate.__dict__} does not "
+          f"match the driver")
+    t_kill = ticks[-1]["t"]
+    healed = [e for e in evs if e["kind"] == "step" and e["step"] == 4]
+    check(len(healed) == 3, f"chaos_soak: healed steps {healed}")
+    launches = {r: d["launches"] for r, d in sorted(dones.items())}
+    _per_forward("chaos_soak", launches, 4,
+                 {r: (3 if d["pid"] not in first.values() else CHAOS_STEPS)
+                  for r, d in dones.items()})
+    phases = _episode_phases(dones, "internal_error")
+    say("chaos_soak", seconds=secs, card=card, world=3,
+        width="V32000 M512 H8x64 L4 F2048 S256", rows_a_rank=ELASTIC_ROWS,
+        faults="grad/nan@3,checkpoint.write/io_error,kv.request/blackout,"
+               "step/kill rank1@3",
+        injected=json.dumps(injected, sort_keys=True),
+        guard_skips_bit_equal=len(skips), saves=ckpts,
+        kill_to_first_healed_step_s=min(e["t"] for e in healed) - t_kill,
+        **{f"rank{r}_{ph}_s": v for r, ps in sorted(phases.items())
+           for ph, v in sorted(ps.items())
+           if ph in REMESH_PHASES},
+        launches=";".join(f"{r}:{v['flash_attention_fwd']},"
+                          f"{v['xent_fwd']}" for r, v in launches.items()),
+        journal_world_gen=jstate.world_gen,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def _concurrently(*fns) -> list:
+    """Run ``fns`` side by side on threads; their results, in order. The
+    first failure is raised once every one has ended."""
+    import threading
+    out, errs = [None] * len(fns), []
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as e:   # raised on the caller's thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn), daemon=True)
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def phase_preempt_drain(torch, card: str) -> tuple:
+    """[preempt_drain]: a planned drain against a reactive kill at the same
+    step (the first commit), the flagship at depth CHAOS_LAYERS, the two
+    runs side by side on the card. Returns each run's final ranks'
+    launches and the seconds from the drain run's start to its first
+    step."""
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+    from horovod_tpu_torch.runner.elastic import journal
+    t_phase = time.perf_counter()
+    t_wall = time.time()
+    depth = ["--layers", CHAOS_LAYERS, "--steps", DRAIN_STEPS, "--sleep", 0.1]
+
+    def run(prefix, plan, extra, env):
+        with tempfile.TemporaryDirectory(prefix=prefix) as out:
+            plan = json.loads(json.dumps(plan).replace("OUT", out))
+            evs, _driver, secs = _elastic_chaos_run(
+                worker, out, f"preempt_drain ({prefix[:-1]})", depth + extra,
+                dict(env, HVD_TPU_FAULT_PLAN=json.dumps(plan)))
+            return evs, secs, journal.load(os.path.join(
+                out, "journal", journal.JOURNAL_NAME))
+
+    # the notice fires at the watcher's first poll and the driver plans
+    # the drain once every listener registered (the first commit); the
+    # kill comes after that same commit
+    notice = {"faults": [{"seam": "preemption", "kind": "notice",
+                          "rank": 2, "marker": "OUT/noticed_{rank}"}]}
+    kill = {"faults": [{"seam": "step", "kind": "kill", "rank": 2,
+                        "start": 1, "stop": 2,
+                        "marker": "OUT/killed_{rank}"}]}
+    with environ(HVD_TPU_DRAIN_COOLDOWN_S=DRAIN_COOLDOWN_S):
+        (evs, secs, jstate), (evs2, secs2, jstate2) = _concurrently(
+            lambda: run("drain_", notice, ["--until-size", 3,
+                                           "--min-generation", 2],
+                        {"HVD_TPU_PREEMPTION_POLL_S": str(DRAIN_POLL_S)}),
+            lambda: run("kill_", kill, [], {}))
+    handled = [e["ts"] for e in recorder().events()
+               if e["kind"] == "drain_notice_handled" and e["ts"] > t_wall]
+    first = _first_pids(evs)
+    boots = [e for e in evs if e["kind"] == "boot"]
+    dones = {e["rank"]: e for e in evs if e["kind"] == "done"}
+    notices = [e for e in evs if e["kind"] == "drain_notice"]
+    exits = sorted(r["state"] for r in jstate.exits.values())
+    check(len(notices) == 1 and notices[0]["pid"] == first[2]
+          and notices[0]["counted"] == 1 and len(handled) == 1,
+          f"preempt_drain: notices {notices}, handled {handled}")
+    check("DRAINED" in exits and "FAILURE" not in exits
+          and jstate.blocklist == {}, f"preempt_drain: exits {exits}, "
+                                      f"blocklist {jstate.blocklist}")
+    check(len(boots) == 4 and sorted(dones) == [0, 1, 2] and all(
+        d["size"] == 3 for d in dones.values()) and first[2] not in {
+        d["pid"] for d in dones.values()}, f"preempt_drain: boots {boots}, "
+                                           f"ends {dones}")
+    planned = _episode_phases({r: dones[r] for r in dones
+                               if dones[r]["pid"] in first.values()},
+                              "preemption_drain")
+    check(len(planned) == 2 and all(
+        p.get("failure_detect", 0.0) <= DRAIN_DETECT_MAX_S
+        for p in planned.values()), f"preempt_drain: planned episodes "
+                                    f"{planned}")
+    readmit = [b for b in boots if b["pid"] not in first.values()][0]
+    check(readmit["t"] - handled[0] >= DRAIN_COOLDOWN_S,
+          f"preempt_drain: the slot came back {readmit['t'] - handled[0]} s "
+          f"after the drain, inside the {DRAIN_COOLDOWN_S} s cooldown")
+    healed, full = _healed_after("preempt_drain", evs, dones, first,
+                                 "preemption_drain")
+    drained_steps = [e["step"] for e in evs if e["kind"] == "step"
+                     and e["pid"] == first[2]]
+    first2 = _first_pids(evs2)
+    dones2 = {e["rank"]: e for e in evs2 if e["kind"] == "done"}
+    exits2 = sorted(r["state"] for r in jstate2.exits.values())
+    check("FAILURE" in exits2 and sorted(dones2) == [0, 1, 2],
+          f"preempt_drain (kill): exits {exits2}, ends {dones2}")
+    killed = [e for e in evs2 if e["kind"] == "tick"
+              and e["pid"] == first2[2]]
+    check(killed and killed[-1]["step"] == 1, f"preempt_drain (kill): "
+                                              f"{_evsum(evs2)}")
+    healed2, _full2 = _healed_after("preempt_drain (kill)", evs2, dones2,
+                                    first2, "internal_error")
+    reactive = _episode_phases({r: dones2[r] for r in dones2
+                                if dones2[r]["pid"] in first2.values()},
+                               "internal_error")
+    launches = {"drain": {r: d["launches"] for r, d in sorted(dones.items())},
+                "kill": {r: d["launches"] for r, d in sorted(dones2.items())}}
+    for label, got in launches.items():
+        _per_forward(f"preempt_drain ({label})", got, CHAOS_LAYERS, {})
+    boot_s = _first_t("preempt_drain", evs, "step",
+                      lambda e: e["kind"] == "step") - t_wall
+    say("preempt_drain", card=card, world=3, depth=CHAOS_LAYERS,
+        width="V32000 M512 H8x64 F2048 S256", runs="side by side",
+        drain_seconds=secs, kill_seconds=secs2, exits=",".join(exits),
+        drained_after_steps=",".join(map(str, drained_steps)),
+        notice_to_handled_s=handled[0] - notices[0]["at"],
+        handled_to_healed_s=healed - handled[0],
+        handled_to_readmitted_step_s=full - handled[0],
+        kill_to_healed_s=healed2 - killed[-1]["t"],
+        **{f"drain_rank{r}_{ph}_s": v for r, ps in sorted(planned.items())
+           for ph, v in sorted(ps.items()) if ph in REMESH_PHASES},
+        **{f"kill_rank{r}_{ph}_s": v for r, ps in sorted(reactive.items())
+           for ph, v in sorted(ps.items()) if ph in REMESH_PHASES},
+        phase_s=time.perf_counter() - t_phase)
+    return launches, boot_s
+
+
+def phase_driver_chaos(torch, card: str, boot_s: float) -> dict:
+    """[driver_chaos]: the launcher's supervised driver killed by the chaos
+    ``driver`` seam at a poll tick a quarter plus six seconds past the
+    workers' boot (``boot_s``, [preempt_drain]'s at the same depth: a host
+    that boots slowly boots slowly in both). Returns each rank's
+    launches."""
+    import datetime
+
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.runner.elastic import journal
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tick = int(math.ceil((1.25 * boot_s + 6.0) / 0.25))
+    with tempfile.TemporaryDirectory(prefix="driver_chaos_") as out:
+        marker = os.path.join(out, "driver_killed")
+        plan = {"seed": 7, "faults": [{"seam": "driver", "kind": "kill",
+                                       "start": tick, "stop": tick + 1,
+                                       "marker": marker}]}
+        jdir = os.path.join(out, "journal")
+        env = dict(os.environ, PYTHONPATH=repo,
+                   HVD_TPU_FAULT_PLAN=json.dumps(plan),
+                   HVD_TPU_DRIVER_OUTAGE_GRACE_S="120",
+                   HVD_ELASTIC_CKPT=os.path.join(out, "ckpt"),
+                   HOROVOD_TPU_OPERATIONS="GLOO", OMP_NUM_THREADS="1",
+                   HVD_TPU_GLOO_TIMEOUT_SECONDS=str(ELASTIC_GLOO_TIMEOUT_S))
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-H", "localhost:3", "--min-np", "3", "-np", "3",
+               "--driver-journal-dir", jdir, "--"] + worker.command(
+            out, "--device", "cuda:0", "--layers", CHAOS_LAYERS, "--steps",
+            DRIVER_CHAOS_STEPS, "--rows", ELASTIC_ROWS, "--sleep", 0.25,
+            "--outage-autopsy", "--until-marker",
+            f"{marker}:{DRIVER_CHAOS_AFTER}")
+        r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=CHAOS_TIMEOUT_S, cwd=repo)
+        evs = worker.events(out)
+        check(r.returncode == 0, f"driver_chaos: the launcher exited "
+                                 f"{r.returncode}:\n{r.stderr[-4000:]}")
+        t_kill = os.path.getmtime(marker) if os.path.exists(marker) \
+            else None
+        jstate = journal.load(os.path.join(jdir, journal.JOURNAL_NAME))
+    took = [line for line in r.stderr.splitlines()
+            if "driver takeover complete" in line]
+    check(t_kill is not None and took and
+          "respawning into journal takeover" in r.stderr
+          and jstate.takeovers and jstate.clean_exit == 0,
+          f"driver_chaos: no takeover ({t_kill}, {jstate.takeovers}):\n"
+          f"{r.stderr[-3000:]}")
+    t_took = datetime.datetime.strptime(
+        took[0][1:24], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    first = _first_pids(evs)
+    boots = [e for e in evs if e["kind"] == "boot"]
+    dones = {e["rank"]: e for e in evs if e["kind"] == "done"}
+    steps = [e for e in evs if e["kind"] == "step"]
+    check(len(boots) == 3 and sorted(dones) == [0, 1, 2] and all(
+        d["pid"] == first[rk] and d["size"] == 3
+        and d["step"] >= DRIVER_CHAOS_STEPS
+        and d["remesh"] == {"total": 0, "phases": {}}
+        for rk, d in dones.items()), f"driver_chaos: boots {boots}, "
+                                     f"ends {dones}")
+    for rk in range(3):
+        seq = [e["step"] for e in steps if e["rank"] == rk]
+        check(seq == list(range(1, dones[rk]["step"] + 1)),
+              f"driver_chaos: rank {rk}'s steps {seq}")
+    # training began at the first step's tick: its step event comes after
+    # that step's commit, which a kill in the step makes wait on the KV
+    began = _first_t("driver_chaos", evs, "tick",
+                     lambda e: e["kind"] == "tick")
+    check(began < t_kill < max(e["t"] for e in steps),
+          f"driver_chaos: the kill at tick {tick} fell outside training: "
+          f"{t_kill - began} s after the first step began: {_evsum(evs)}")
+    autopsies = [e for e in evs if e["kind"] == "outage_autopsy"]
+    check(autopsies and all(a["driver_outage"] is not None
+                            for a in autopsies),
+          f"driver_chaos: outage autopsies {autopsies}")
+    launches = {rk: d["launches"] for rk, d in sorted(dones.items())}
+    _per_forward("driver_chaos", launches, CHAOS_LAYERS,
+                 {rk: DRIVER_CHAOS_STEPS for rk in dones})
+    during = [e["step"] for e in steps if t_kill < e["t"] < t_took]
+    say("driver_chaos", card=card, world=3, depth=CHAOS_LAYERS,
+        kill_tick=tick, kill_to_takeover_s=t_took - t_kill,
+        steps_during_outage=len(during), remesh=0,
+        outage_autopsies=len(autopsies),
+        driver_outage=json.dumps(autopsies[0]["driver_outage"]),
+        launches=";".join(f"{rk}:{v['flash_attention_fwd']},"
+                          f"{v['xent_fwd']}" for rk, v in launches.items()),
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_autopilot_straggler(torch, card: str) -> dict:
+    """[autopilot_straggler]: the fleet tree's straggler finding acted on
+    by the autopilot under ``act``. Returns each final rank's launches."""
+    import glob
+
+    import torch_port_elastic_worker as worker
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="straggler_") as out:
+        base, held = reserve_ports(3)
+        obs = os.path.join(out, "obs")
+        plan = {"faults": [{"seam": "step", "kind": "stall", "rank": 2,
+                            "start": 1, "stop": 6, "stall_s": 1.2}]}
+        try:
+            with environ(HVD_TPU_DRAIN_COOLDOWN_S=DRAIN_COOLDOWN_S):
+                evs, _driver, secs = _elastic_chaos_run(
+                    worker, out, "autopilot_straggler",
+                    ["--layers", CHAOS_LAYERS, "--steps", STRAGGLER_STEPS,
+                     "--local", "--sleep", 0.05, "--until-size", 3,
+                     "--min-generation", 2],
+                    {"HVD_TPU_FAULT_PLAN": json.dumps(plan),
+                     "HVD_TPU_AUTOPILOT": "act", "HVD_TPU_OBS_DIR": obs,
+                     "HVD_TPU_METRICS_PORT": str(base),
+                     "HVD_TPU_FLEET_PUSH_SECONDS": "0.4",
+                     "HVD_TPU_ANOMALY_STRAGGLER_WINDOWS": "2",
+                     "HVD_TPU_PROFILE_ON_ANOMALY": "0",
+                     # unsynchronized ranks end a few steps apart
+                     "HVD_TPU_SHUTDOWN_GRACE_S": "2"})
+        finally:
+            for sock in held:
+                sock.close()
+        decisions = []
+        for f in sorted(glob.glob(os.path.join(obs, "actions_rank*.jsonl"))):
+            with open(f) as fh:
+                decisions += [json.loads(line) for line in fh]
+        # the CLI's own entry point (python -m horovod_tpu_torch.metrics)
+        import io
+        from contextlib import redirect_stdout
+
+        from horovod_tpu_torch.metrics.__main__ import main as metrics_main
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            hist_rc = metrics_main(["history", "--actions", "--dir", obs])
+        hist_out = buf.getvalue()
+    first = _first_pids(evs)
+    boots = [e for e in evs if e["kind"] == "boot"]
+    dones = {e["rank"]: e for e in evs if e["kind"] == "done"}
+    fired = [d for d in decisions if d["policy"] == "straggler-drain"
+             and d["outcome"] == "fired"]
+    check(len(fired) == 1 and fired[0]["target_rank"] == 2
+          and fired[0]["rank"] == 0, f"autopilot_straggler: decisions "
+                                     f"{decisions}")
+    counted = dones[0]["chaos"]["autopilot"].get(
+        'hvd_autopilot_decisions_total{outcome="fired",'
+        'policy="straggler-drain"}')
+    rows = [line for line in hist_out.splitlines()
+            if "straggler-drain" in line and "fired" in line]
+    check(hist_rc == 0 and len(rows) == 1 and counted == 1.0,
+          f"autopilot_straggler: history --actions {hist_out[-2000:]}, "
+          f"counter {counted}")
+    check(len(boots) == 4 and sorted(dones) == [0, 1, 2] and all(
+        d["size"] == 3 for d in dones.values()) and first[2] not in {
+        d["pid"] for d in dones.values()}, f"autopilot_straggler: boots "
+                                           f"{boots}, ends {dones}")
+    finding = [f for f in dones[0]["chaos"]["findings"]
+               if f["kind"] == "persistent_straggler"
+               and f["trace"] == fired[0].get("trace")]
+    check(len(finding) == 1 and finding[0]["rank"] == 2,
+          f"autopilot_straggler: the finding {dones[0]['chaos']['findings']}")
+    t_fired = fired[0]["ts"]
+    healed, full = _healed_after("autopilot_straggler", evs, dones, first,
+                                 "preemption_drain")
+    launches = {r: d["launches"] for r, d in sorted(dones.items())}
+    _per_forward("autopilot_straggler", launches, CHAOS_LAYERS, {})
+    drained = _episode_phases({r: dones[r] for r in dones
+                               if dones[r]["pid"] in first.values()},
+                              "preemption_drain")
+    say("autopilot_straggler", card=card, world=3, depth=CHAOS_LAYERS,
+        seconds=secs, stall="rank 2, steps 1-5, 1.2 s",
+        finding_to_action_s=t_fired - finding[0]["ts"],
+        action_to_healed_s=healed - t_fired,
+        action_to_readmitted_step_s=full - t_fired,
+        decisions=",".join(f"{d['policy']}:{d['outcome']}"
+                           for d in decisions),
+        **{f"rank{r}_{ph}_s": v for r, ps in sorted(drained.items())
+           for ph, v in sorted(ps.items()) if ph in REMESH_PHASES},
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def transport_chaos_rank_main(out_dir: str) -> int:
+    """One rank of [transport_chaos_2rank]: a flagship forward at depth
+    CHAOS_LAYERS on ``cuda:0``, then the core under the transport plan
+    (``torch_port_chaos_worker.run``); the failed collective leaves the
+    core's ring broken, so the rank leaves at once."""
+    import numpy as np
+    import torch
+
+    import torch_port_chaos_worker as chaos_worker
+
+    from horovod_tpu_torch.entry import _flagship_cfg
+    from horovod_tpu_torch.models import (Transformer, from_jax_params,
+                                          init_params, make_forward)
+    from horovod_tpu_torch.ops import attention, xent
+    rank = int(os.environ["HVD_TPU_RANK"])
+    cfg = dataclasses.replace(_flagship_cfg(False), n_layers=CHAOS_LAYERS)
+    model = Transformer(cfg, torch.device("cuda", 0))
+    model.load_state_dict(from_jax_params(init_params(
+        np.random.RandomState(0), cfg)))
+    tokens, targets = flagship_batch(cfg)
+    counters = (attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda)
+    for c in counters:
+        c.launches = 0
+    loss = float(make_forward(cfg)(model, tokens.cuda(), targets.cuda()))
+    launches = {"flash_attention_fwd": counters[0].launches,
+                "xent_fwd": counters[1].launches}
+    res = chaos_worker.run("port", out_dir, "cuda:0")
+    with open(os.path.join(out_dir, f"launches{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "loss": loss}, f)
+    sys.stdout.flush()
+    os._exit(0 if res["grouped_equal"] else 1)
+
+
+def phase_transport_chaos(torch, card: str) -> dict:
+    """[transport_chaos_2rank]: the core's transport seams on the card.
+    Returns each rank's launches."""
+    import torch_port_chaos_worker as chaos_worker
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="transport_chaos_") as out:
+        base, held = reserve_ports(1)
+        try:
+            _run_gloo_ranks(out, 2, "transport_chaos",
+                            "transport_chaos_2rank", env_extra={
+                                "HVD_TPU_FAULT_PLAN":
+                                    json.dumps(chaos_worker.PLAN),
+                                "HVD_TPU_COORD_ADDR": "127.0.0.1",
+                                "HVD_TPU_COORD_PORT": str(base)})
+        finally:
+            for sock in held:
+                sock.close()
+        res, launches = [], {}
+        for r in range(2):
+            with open(os.path.join(out, f"port.rank{r}.json")) as f:
+                res.append(json.load(f))
+            with open(os.path.join(out, f"launches{r}.json")) as f:
+                launches[r] = json.load(f)["launches"]
+    _per_forward("transport_chaos_2rank", launches, CHAOS_LAYERS, {})
+    check(all(x["grouped_equal"] for x in res),
+          f"transport_chaos_2rank: the grouped allreduce {res}")
+    check(res[1]["chaos_injected"] == 4 and res[0]["chaos_injected"] == 0,
+          f"transport_chaos_2rank: delays counted "
+          f"{[x['chaos_injected'] for x in res]}")
+    err = res[0]["error"] or ""
+    # which error each rank surfaces is a race inside the core (the
+    # worker's docstring): the checksum counter says the flip was caught
+    classes = [chaos_worker.error_class(x["error"]) for x in res]
+    check(res[0]["checksum_failures"] == 1 and all(
+        c in chaos_worker.ERROR_CLASSES[r] for r, c in enumerate(classes)),
+          f"transport_chaos_2rank: the bit flip surfaced as {res}")
+    say("transport_chaos_2rank", card=card, world=2,
+        delayed_frames=res[1]["chaos_injected"],
+        grouped_s=",".join(f"{x['grouped_s']:.4f}" for x in res),
+        grouped_equal=True, checksum_failures=res[0]["checksum_failures"],
+        errors=",".join(classes), rank0_error=json.dumps(err[:80]),
+        launches=";".join(f"{r}:{v['flash_attention_fwd']},{v['xent_fwd']}"
+                          for r, v in launches.items()),
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_rollout_canary(torch, dev, card: str) -> None:
+    """[rollout_canary]: a poisoned candidate rolled back and a clean one
+    promoted by the autopilot over a fleet of two flagship replicas."""
+    import random
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from horovod_tpu_torch import autopilot
+    from horovod_tpu_torch.checkpoint import ShardedCheckpointer
+    from horovod_tpu_torch.metrics import anomaly
+    from horovod_tpu_torch.serving import ReplicaFleet, Router
+    from horovod_tpu_torch.serving.generate import flagship_gen_setup
+    from horovod_tpu_torch.serving.rollout import (RolloutConfig,
+                                                   RolloutController)
+    t_phase = time.perf_counter()
+    plan = {"faults": [{"seam": "serving.request", "kind": "error",
+                        "rank": 0, "count": ROLLOUT_POISON}]}
+    stop, errors, rng = threading.Event(), [], random.Random(3)
+
+    def client(router, k):
+        i = 0
+        while not stop.is_set():
+            prompt = [rng.randrange(cfg.vocab_size) for _ in range(16)]
+            try:
+                router.submit_generate(prompt, max_new=8,
+                                       req_id=f"c{k}-{i}")
+            except Exception as e:
+                errors.append(f"c{k}-{i}: {e!r}")
+            i += 1
+
+    def until(ctl, state, timeout):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and ctl.state != state:
+            ctl.evaluate()
+            time.sleep(0.1)
+        check(ctl.state == state, f"rollout_canary: {ctl.status()}")
+
+    with tempfile.TemporaryDirectory(prefix="rollout_") as store_dir, \
+            environ(HVD_TPU_AUTOPILOT="act", HVD_TPU_PROFILE_ON_ANOMALY=0):
+        autopilot.reset()
+        anomaly.reset()
+        store = ShardedCheckpointer(store_dir, rank=0, world_size=1)
+        for step, seed in ((1, 0), (2, 1), (3, 2)):
+            params, cfg = flagship_gen_setup(seed=seed, device="cpu")
+            store.save(step, {"params": params}, wait=True)
+        fleet = ReplicaFleet(
+            size=2, mode="generate", device=str(dev), store_dir=store_dir,
+            poll_s=0.1, extra_env={"HVD_TPU_FAULT_PLAN": json.dumps(plan)},
+            extra_args=["--flagship", "--slots", str(SERVE_SLOTS),
+                        "--prefill-chunk", str(SERVE_CHUNK),
+                        "--pin-version", "1"])
+        router = None
+        threads = []
+        try:
+            t0 = time.perf_counter()
+            fleet.start(ready_timeout_s=SERVE_TIMEOUT_S)
+            ready_s = time.perf_counter() - t0
+            router = Router(fleet.endpoints, max_attempts=8, hedge_ms=0,
+                            attempt_timeout_s=SERVE_TIMEOUT_S,
+                            default_deadline_s=SERVE_TIMEOUT_S)
+            ctl = RolloutController(
+                fleet, router, RolloutConfig(
+                    canary_pct=50, expand_pct=50, window_s=0.5,
+                    min_requests=8, max_p99_ratio=4.0,
+                    max_error_rate=0.05),
+                store_dir=store_dir).register_autopilot_hooks()
+            t_rb = time.perf_counter()
+            ctl.begin(candidate=2, incumbent=1)
+            poisoned_trace = ctl.trace.trace_id
+            threads = [threading.Thread(target=client, args=(router, k),
+                                        daemon=True) for k in range(4)]
+            for t in threads:
+                t.start()
+            until(ctl, "rolled_back", SERVE_TIMEOUT_S)
+            rollback_s = time.perf_counter() - t_rb
+            pins_after_rollback = fleet.pins()
+            # the canary slot's rule has errors left only if the verdict
+            # came before all were spent: spend them off the router's
+            # books (a direct request each), so the clean candidate's
+            # canary starts clean
+            port0 = fleet._replicas[0].read_port()
+            left = 0
+            for i in range(ROLLOUT_POISON):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port0}/generate",
+                    data=json.dumps({"id": f"flush{i}", "prompt": [1, 2],
+                                     "max_new": 1}).encode(), method="POST")
+                try:
+                    urllib.request.urlopen(req, timeout=60).read()
+                    break
+                except urllib.error.HTTPError:
+                    left += 1
+            t_pr = time.perf_counter()
+            ctl.begin(candidate=3, incumbent=1)
+            clean_trace = ctl.trace.trace_id
+            until(ctl, "promoted", SERVE_TIMEOUT_S)
+            promote_s = time.perf_counter() - t_pr
+            deadline = time.monotonic() + SERVE_TIMEOUT_S
+            while time.monotonic() < deadline and not all(
+                    v == 3 for v in fleet.versions().values()):
+                time.sleep(0.1)
+            versions = fleet.versions()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=SERVE_TIMEOUT_S)
+            if router is not None:
+                acct = router.accounting()
+                router.close()
+            fleet.stop()
+            store.close()
+        decisions = autopilot.recent_decisions()
+        history = list(ctl.history)
+        autopilot.reset()
+        anomaly.reset()
+    check(not errors, f"rollout_canary: failed requests {errors[:3]}")
+    check(acct["accepted"] == acct["answered_ok"] > 0
+          and not acct["unanswered"] and not acct["answered_twice"]
+          and acct["outcomes"].get("failed", 0) == 0,
+          f"rollout_canary: the books {acct}")
+    check(pins_after_rollback == {0: 1, 1: 1},
+          f"rollout_canary: pins after the rollback {pins_after_rollback}")
+    check(all(v == 3 for v in versions.values()),
+          f"rollout_canary: versions after the promotion {versions}")
+    rb = [d for d in decisions if d["policy"] == "rollout-rollback"
+          and d["outcome"] == "fired"]
+    pr = [d for d in decisions if d["policy"] == "rollout-promote"
+          and d["outcome"] == "fired"]
+    check(len(rb) == 1 and rb[0]["trace"] == poisoned_trace
+          and len(pr) == 2 and all(d["trace"] == clean_trace for d in pr),
+          f"rollout_canary: decisions {decisions}")
+    by_version = acct.get("by_version", {})
+    stages = ",".join(f"{h['to']}@{h['ts'] - history[0]['ts']:.3f}"
+                      for h in history)
+    say("rollout_canary", card=card, replicas=2, serving="fp32 flagship",
+        ready_s=ready_s, begin_to_rolled_back_s=rollback_s,
+        begin_to_promoted_s=promote_s, stages=stages,
+        poison_errors_left=left,
+        accounting=json.dumps(acct["outcomes"], sort_keys=True),
+        by_version=json.dumps(by_version, sort_keys=True),
+        phase_s=time.perf_counter() - t_phase)
+
+
 def kernel_counters():
     """The launch counters of the eight kernels, by kernel name."""
     from horovod_tpu_torch.ops import attention, quantize, xent
@@ -5667,12 +6443,48 @@ def main() -> int:
               for r in range(2) for name in ("quantize", "dequantize")),
           "quantize or dequantize did not run on both eager ranks")
 
+    # -- the self-healing loop: a compound fault plan healed at full depth,
+    # a planned drain against a reactive kill, the driver's takeover, the
+    # autopilot draining a straggler, the core's transport seams, and a
+    # rollout the autopilot rolls back and then promotes (each training
+    # rank's launches; the rollout's in this process, counted from 0)
+    chaos_launches = {}
+    chaos_launches["chaos_soak"] = phase_chaos_soak(torch, card)
+    drained, boot_s = phase_preempt_drain(torch, card)
+    chaos_launches["preempt_drain"] = drained["drain"]
+    chaos_launches["preempt_kill"] = drained["kill"]
+    # two independent depth-2 runs, side by side on the card
+    chaos_launches["driver_chaos"], chaos_launches["autopilot_straggler"] = \
+        _concurrently(lambda: phase_driver_chaos(torch, card, boot_s),
+                      lambda: phase_autopilot_straggler(torch, card))
+    chaos_launches["transport_chaos_2rank"] = phase_transport_chaos(
+        torch, card)
+    for c in every.values():
+        c.launches = 0
+    phase_rollout_canary(torch, dev, card)
+    chaos_launches["rollout_canary"] = {
+        0: {k: c.launches for k, c in every.items()}}
+    check(all(n == 0 for n in chaos_launches["rollout_canary"][0].values()),
+          f"a kernel ran on the rollout's path: "
+          f"{chaos_launches['rollout_canary']}")
+    for k in kernels:
+        k["chaos_launches"] = {ph: [got[r].get(k["name"], 0)
+                                    for r in sorted(got)]
+                               for ph, got in chaos_launches.items()}
+
+    # where the run's time goes: from each phase's first line to the next
+    # phase's (the kernel phases print several lines, concurrent phases in
+    # the order they finished)
+    marks = sorted(_FIRST_SAID.items(), key=lambda kv: kv[1])
+    say("timing", total_s=f"{time.perf_counter() - _T0:.1f}",
+        **{name: f"{nxt - t:.1f}" for (name, t), (_, nxt)
+           in zip(marks, marks[1:] + [("end", time.perf_counter() - _T0)])})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "dp_launches", "telemetry_launches", "layout_launches",
             "pp_launches", "ckpt_launches", "serve_launches",
             "obs_launches", "hvdrun_launches", "elastic_launches",
-            "eager_launches")
+            "eager_launches", "chaos_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5701,6 +6513,8 @@ if __name__ == "__main__":
             sys.exit(obs_hang_rank_main(sys.argv[2]))
         if role == "eager":
             sys.exit(eager_rank_main(sys.argv[2]))
+        if role == "transport_chaos":
+            sys.exit(transport_chaos_rank_main(sys.argv[2]))
         if role in PIPELINE_PHASES:
             sys.exit(pipeline_rank_main(sys.argv[2], role))
         sys.exit(layout_rank_main(sys.argv[2], role))

@@ -16,8 +16,9 @@ checkpoint written by either package restores in the other:
   :class:`Shard`, a rank's block of a leaf split over a mesh.
 
 ``train.callbacks.CheckpointCallback`` wires the store into a training
-loop. The elastic ``ObjectState``'s durable commits arrive with the
-elastic slice (ROADMAP queue 1 item 7).
+loop. The elastic ``ObjectState`` commits durably through the same store
+(:mod:`horovod_tpu_torch.elastic`, ``ObjectState(durable=True)`` or the
+``HVD_TPU_ELASTIC_DURABLE`` knob).
 """
 
 from horovod_tpu_torch.checkpoint.format import CheckpointError  # noqa: F401

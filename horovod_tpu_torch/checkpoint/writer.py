@@ -121,9 +121,12 @@ class AsyncWriter:
                 job = self._jobs.popleft()
                 self._busy = True
             try:
-                # the JAX writer fires the chaos seam "checkpoint.write"
-                # here (io_error, slow_fsync); it arrives with the chaos
-                # harness (ROADMAP queue 1 item 7)
+                # chaos seam (horovod_tpu/checkpoint/writer.py:112): an
+                # injected io_error raises here and surfaces through the
+                # async-error path (next submit/wait), a slow_fsync
+                # sleeps the writer, where a slow disk would bite
+                from horovod_tpu_torch import chaos
+                chaos.fire("checkpoint.write")
                 job()
             except BaseException as e:  # held for the next submit/wait
                 with self._cond:

@@ -30,7 +30,10 @@ the host timeline (``HVD_TPU_TIMELINE``; with
 ``HVD_TPU_TIMELINE_ALL_RANKS`` a shard a rank, anchored by the clock
 offset measured over the new group), the flight recorder's crash hooks
 and ``init`` event, the hang watchdog's re-arm, and the per-worker
-exporter (``HVD_TPU_METRICS_PORT``) with its fleet tree node.
+exporter (``HVD_TPU_METRICS_PORT``) with its fleet tree node. It arms
+the control plane as the JAX ``init`` does: the chaos fault plan
+(``HVD_TPU_FAULT_PLAN``) before the group forms, then the preemption
+watcher (under an elastic driver) and the autopilot's policy engine.
 ``shutdown`` stands them down before the group is destroyed.
 
 ``shutdown(force=False)`` ends a world as the JAX package's negotiated
@@ -146,6 +149,12 @@ def init(ranks: Optional[Sequence[int]] = None,
         size, rank = ident["size"], ident["rank"]
         if not 0 <= rank < size:
             raise ValueError(f"rank {rank} is outside a world of {size}")
+        # Chaos harness (horovod_tpu/common/basics.py:125): arm the fault
+        # plan before any backend boots, so the core's transport reads
+        # the compiled spec and rank-scoped rules follow the rank an
+        # elastic re-mesh just handed us. A malformed plan raises here.
+        from horovod_tpu_torch import chaos as _chaos
+        _chaos.install(rank=rank)
         backend = _backend_name(cfg.tpu_operations)
         kw = dict(backend=backend, rank=rank, world_size=size,
                   timeout=datetime.timedelta(seconds=cfg.gloo_timeout_seconds))
@@ -236,6 +245,20 @@ def init(ranks: Optional[Sequence[int]] = None,
         # bind failure only warns.
         from horovod_tpu_torch.metrics.exporter import start_worker_exporter
         _state.metrics_exporter = start_worker_exporter(_state)
+        # Proactive preemption watcher (horovod_tpu/common/basics.py:247):
+        # armed only under an elastic driver; idempotent across re-inits.
+        try:
+            from horovod_tpu_torch.elastic import preemption as _preemption
+            _preemption.ensure_watcher()
+        except Exception:
+            from horovod_tpu_torch.common.logging import get_logger
+            get_logger().debug("preemption watcher not armed",
+                               exc_info=True)
+        # Autopilot policy engine (horovod_tpu/common/basics.py:265):
+        # armed here so a malformed HVD_TPU_AUTOPILOT_POLICY fails the
+        # job at init; a re-init refreshes the engine's rank.
+        from horovod_tpu_torch import autopilot as _autopilot
+        _autopilot.ensure_engine()
         if _state.world_ranks is not None or process_sets:
             # an excluded process submits nothing, yet the core's world
             # must form: the engine starts now, on every process

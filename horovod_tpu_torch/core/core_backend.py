@@ -188,6 +188,12 @@ class CoreBackend(Backend):
         self._group_lock = threading.Lock()
         self._staging = [0.0] if parent is None else parent._staging
         if domain == 0:
+            # chaos harness (horovod_tpu/core/core_backend.py:214): a raw
+            # core worker (no init) still honours HVD_TPU_FAULT_PLAN; the
+            # transport spec must be in the environment before the core
+            # reads it at Transport::Init (cpp/transport.cc:27)
+            from horovod_tpu_torch import chaos
+            chaos.install()
             rc = self._lib.hvd_init()
             if rc != 0:
                 raise RuntimeError("hvdcore init failed: " +

@@ -345,6 +345,28 @@ def write_autopsy(out_dir: Optional[str] = None, reason: str = "",
 
     goodput_snap = step(_goodput)
 
+    def _actions():
+        # the autopilot's decision trail (JAX diagnostics/autopsy.py:
+        # 318): a job that remediated itself, or decided not to, and
+        # then died ships what it tried, gate inputs included
+        from horovod_tpu_torch.autopilot import recent_decisions
+        return recent_decisions()
+
+    actions = step(_actions) or []
+
+    def _driver_outage():
+        # control-plane health at the time of death: an elastic driver
+        # unreachable past the ride-through grace is the headline (the
+        # workers are orphaned, not stuck on each other)
+        from horovod_tpu_torch.elastic import outage
+        if not outage.enabled() or not outage.active():
+            return None
+        return {"age_s": round(outage.age_s(), 3),
+                "grace_s": outage.grace_s(),
+                "exceeded": outage.exceeded()}
+
+    driver_outage = step(_driver_outage)
+
     def _exemplars():
         # the serving ledger's tail exemplars: the worst requests per
         # latency window, each with its trace id and full stage
@@ -365,13 +387,10 @@ def write_autopsy(out_dir: Optional[str] = None, reason: str = "",
         "written_at": time.time(),
         "suspects": suspects,
         "anomalies": anomalies,
-        # the autopilot's decision trail and the elastic driver's outage
-        # state: the JAX package's sections, empty as there when those
-        # planes are absent (the port has neither yet)
-        "actions": [],
+        "actions": actions,
         "profiles": profiles,
         "goodput": goodput_snap,
-        "driver_outage": None,
+        "driver_outage": driver_outage,
         "exemplars": len(exemplar_docs),
         "peers_fetched": fetched,
         "peers_unreachable": unreachable,

@@ -373,8 +373,8 @@ class AnomalyEngine:
         finding["ts"] = round(time.time(), 3)
         try:
             # causal tracing: the finding ROOTS a trace that what acts
-            # on it continues (in the JAX package: the autopilot
-            # decision, the driver's handling, the re-mesh episode)
+            # on it continues (the autopilot decision, the driver's
+            # handling, the re-mesh episode)
             from horovod_tpu_torch import tracing
             supplied = finding.get(tracing.TRACEPARENT)
             if supplied:
@@ -418,10 +418,15 @@ class AnomalyEngine:
                             if k not in ("ts", "traceparent")})
         except Exception:
             pass
-        # The JAX engine offers every finding to the autopilot here
-        # (autopilot.on_finding). The port has no autopilot yet (ROADMAP
-        # queue 1, item 7): findings are counted, recorded and logged,
-        # and nothing acts on them.
+        try:
+            # autopilot seam (horovod_tpu/metrics/anomaly.py:430): every
+            # finding, native or report_finding(), is offered to the
+            # policy engine, which records one decision per matching
+            # policy; a None check when HVD_TPU_AUTOPILOT=off
+            from horovod_tpu_torch.autopilot import on_finding
+            on_finding(finding)
+        except Exception:
+            pass
         try:
             from horovod_tpu_torch.common.logging import get_logger
             get_logger().warning("anomaly: %s %s", kind,

@@ -14,10 +14,6 @@ A copy of ``horovod_tpu/runner/elastic/driver.py`` with two departures:
   reserve_port` and holds the socket until the next world's port is
   reserved or the driver ends, so rank 0's store binds a port nobody
   else could take.
-* **No chaos plane yet.** ``_init_driver_chaos`` is an open seam
-  (``horovod_tpu/runner/elastic/driver.py:371``), so the ``driver``
-  chaos seam of the poll loop (:1325-1330) fires nothing; the
-  drain-notice and action-request scopes are read as in the JAX driver.
 
 The design — every world change keeps SURVIVORS in-process
 (reference: the reset loop, ``common/elastic.py:151-175``); the
@@ -321,6 +317,7 @@ class ElasticDriver:
                 max_np=self._max_np, target_np=self._target_np,
                 pid=os.getpid(), ts=journal_mod.now_wall())
         self._coord_hold = None  # the current world's held port
+        self._poll_tick = 0
         self._init_driver_chaos()
 
     # -- journal plumbing ----------------------------------------------------
@@ -383,10 +380,27 @@ class ElasticDriver:
             if isinstance(raw, (bytes, bytearray)) else str(raw))
 
     def _init_driver_chaos(self) -> None:
-        """The JAX driver arms the fault plan's ``driver``-seam rules here
-        in a private chaos engine (``horovod_tpu/runner/elastic/
-        driver.py:371``), fired once per poll tick. The port has no chaos
-        plane yet (ROADMAP queue 1 item 7): an open seam."""
+        """Arm only the fault plan's ``driver``-seam rules, in a private
+        engine (``horovod_tpu/runner/elastic/driver.py:371-390``). The
+        module-level ``chaos.install()`` is the workers': its rules
+        default to every rank and this process would read as rank 0, so
+        installing it here would fire worker faults inside the control
+        plane. A malformed plan raises ``FaultPlanError`` here."""
+        self._chaos = None
+        from horovod_tpu_torch.chaos.plan import load_plan_from_env
+        plan = load_plan_from_env()
+        if plan is None:
+            return
+        rules = [r for r in plan.rules if r.seam == "driver"]
+        if not rules:
+            return
+        import dataclasses as _dc
+
+        from horovod_tpu_torch.chaos import ChaosEngine
+        self._chaos = ChaosEngine(_dc.replace(plan, rules=rules), rank=0)
+        get_logger().warning(
+            "chaos: %d driver-seam rule(s) armed in the elastic driver",
+            len(rules))
 
     def _reserve_coord_port(self) -> int:
         """A fresh rendezvous port for the next world, held until the
@@ -1326,6 +1340,14 @@ class ElasticDriver:
         monitoring a REBUILT generation without re-spawning it."""
         while any(t.is_alive() for t in g.threads.values()):
             time.sleep(0.25)
+            self._poll_tick += 1
+            if self._chaos is not None:
+                # the `driver` chaos seam (horovod_tpu/runner/elastic/
+                # driver.py:1329), one invocation a poll tick: kill/exit
+                # end this process mid-decision (the launcher's
+                # supervisor respawns it into a journal takeover), stall
+                # freezes the control plane while workers ride it out
+                self._chaos.fire("driver", index=self._poll_tick)
             # WAL the listener registrations this tick observes: a
             # takeover driver restores them, because a survivor that
             # never noticed the outage will never re-register on its own

@@ -7,9 +7,9 @@ by scope/key, and ``http/http_client.py``): the elastic driver's KV
 receipts), the workers' notification listeners, ``kv_get``/``kv_put``
 with the shared retry policy, and :class:`ThreadedHTTPServer`, the
 hardened server every HTTP plane of the port rides (the serving replica
-and front ends, the metrics exporter, the KV). The JAX package's chaos
-seams on the KV client are not fired: the port has no chaos plane yet
-(ROADMAP queue 1 item 7).
+and front ends, the metrics exporter, the KV). The client fires the chaos
+seams ``kv.request`` and ``kv.partition`` on every attempt, as the JAX
+client does, so an injected blackout is ridden out by the same retries.
 """
 
 from __future__ import annotations
@@ -392,9 +392,10 @@ def kv_put(addr: str, port: int, scope: str, key: str, value: bytes,
                   method="PUT", headers=_trace_headers())
 
     def do():
-        # the JAX package fires its chaos seams "kv.request" and
-        # "kv.partition" (peer) here (horovod_tpu/runner/http_kv.py:399-
-        # 401); the port has no chaos plane yet (ROADMAP queue 1 item 7)
+        # chaos seams (horovod_tpu/runner/http_kv.py:399-401)
+        from horovod_tpu_torch import chaos
+        chaos.fire("kv.request")
+        chaos.fire("kv.partition", peer=peer)
         return urlopen(req, timeout=timeout).read()
 
     _with_retries(do, attempts=attempts, deadline_s=2.0 * timeout,
@@ -407,6 +408,9 @@ def kv_get(addr: str, port: int, scope: str, key: str,
            count_exhausted: bool = True) -> Optional[bytes]:
     def do():
         # chaos seams as in kv_put (horovod_tpu/runner/http_kv.py:413-415)
+        from horovod_tpu_torch import chaos
+        chaos.fire("kv.request")
+        chaos.fire("kv.partition", peer=peer)
         req = Request(f"http://{addr}:{port}/{scope}/{key}",
                       headers=_trace_headers())
         return urlopen(req, timeout=timeout).read()

@@ -17,9 +17,10 @@ CUDA graph on the card, a paged KV-cache pool, the prefill/decode split —
 replicas gain a ``generate`` mode and the router a hedging-free
 :meth:`Router.submit_generate` path.
 
-Not ported yet: the canary rollout controller (``serving/rollout/``), the
-chaos seams and the autopilot hook (ROADMAP queue 1 item 7;
-:mod:`horovod_tpu_torch.serving._seams`).
+The canary rollout controller (:mod:`horovod_tpu_torch.serving.rollout`)
+governs a train-to-serve transition under the autopilot; the replica and
+the page pool fire the chaos seams ``preemption``, ``serving.request``
+and ``serving.kv``.
 """
 
 from horovod_tpu_torch.serving.batcher import (DeadlineError, DrainingError,

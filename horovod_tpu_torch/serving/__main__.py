@@ -17,8 +17,8 @@ router, and serves the FRONT on ``--port``:
 
 Every replica runs on the card unless ``--device cpu``; without a card
 and without ``--device cpu`` the replicas refuse to start and so does the
-front. The JAX front's ``rollout status`` subcommand arrives with the
-rollout controller (ROADMAP queue 1 item 7).
+front. ``python -m horovod_tpu_torch.serving rollout status --store-dir D``
+prints the rollout controller's persisted status.
 """
 
 from __future__ import annotations
@@ -115,7 +115,33 @@ class _FrontHandler(BaseHTTPRequestHandler):
             self._send(404, {"error": "not found"})
 
 
+def _rollout_main(argv) -> int:
+    """``python -m horovod_tpu_torch.serving rollout status --store-dir
+    D``: print the rollout controller's persisted status doc (state,
+    canary slots, split, transition history, trace id) from outside the
+    controller's process. Exit 1 when no rollout ever ran there."""
+    p = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.serving rollout")
+    p.add_argument("command", choices=["status"])
+    p.add_argument("--store-dir", required=True,
+                   help="the store the rollout persists its status "
+                        "next to")
+    args = p.parse_args(argv)
+    from horovod_tpu_torch.serving.rollout import read_status
+    doc = read_status(args.store_dir)
+    if doc is None:
+        print(f"rollout: no status recorded under {args.store_dir!r} "
+              "(no rollout ever ran against this store)")
+        return 1
+    print(json.dumps(doc, indent=1))
+    return 0
+
+
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "rollout":
+        return _rollout_main(argv[1:])
     p = argparse.ArgumentParser(prog="python -m horovod_tpu_torch.serving")
     p.add_argument("--replicas", type=int, default=2)
     p.add_argument("--port", type=int, default=0,

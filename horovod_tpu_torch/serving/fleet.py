@@ -18,11 +18,9 @@ the race that failed the port's spawned test worlds, ROADMAP queue 3 item
 through ``--port-file`` (written atomically once it serves); a replica is
 not an endpoint until its file exists.
 
-``scale_out`` is the autopilot seam: in the JAX package the
-``serving-slo-scaleout`` policy (finding ``slo_breach`` → action
-``scale_out``) runs the hook the fleet registers. The port has no
-autopilot yet, so :meth:`ReplicaFleet.register_autopilot_hook` is an
-open seam (ROADMAP queue 1 item 7); :meth:`ReplicaFleet.scale_out` works.
+``scale_out`` is the autopilot seam: the ``serving-slo-scaleout`` policy
+(finding ``slo_breach`` → action ``scale_out``) runs the hook
+:meth:`ReplicaFleet.register_autopilot_hook` registers.
 """
 
 from __future__ import annotations
@@ -480,7 +478,7 @@ class ReplicaFleet:
         return target
 
     def register_autopilot_hook(self) -> None:
-        """Wire this fleet as the ``scale_out`` remediation target: an
-        open seam until the port has an autopilot
-        (``horovod_tpu/serving/fleet.py:443``; ROADMAP queue 1 item 7).
-        Nothing is registered; :meth:`scale_out` is callable directly."""
+        """Wire this fleet as the ``scale_out`` remediation target
+        (``horovod_tpu/serving/fleet.py:445-446``)."""
+        from horovod_tpu_torch.autopilot import actions
+        actions.register_scale_out_hook(lambda: self.scale_out(1))

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.common.config import env_int
-from horovod_tpu_torch.serving._seams import chaos_fire
+from horovod_tpu_torch import chaos
 
 #: cap on the fusion-threshold fallback: a KV page is a block (tokens of
 #: one sequence), not a 64 MiB comm buffer
@@ -152,9 +152,8 @@ class PagePool:
         if n <= 0:
             return []
         # the chaos seam ``serving.kv`` (horovod_tpu/serving/generate/
-        # pages.py:138-146: a ``starve`` fault refuses the grant); open
-        # until the port's chaos slice, so nothing is ever injected
-        if any(kind == "starve" for _, kind in chaos_fire("serving.kv")):
+        # pages.py:138-146): a ``starve`` fault refuses the grant
+        if any(kind == "starve" for _, kind in chaos.fire("serving.kv")):
             return None
         with self._lock:
             if n > len(self._free):

@@ -13,9 +13,8 @@ gauges, records one ``{"serving": ...}`` point per window into the
 step time-series store (the JAX package's ``history --serving`` reads
 the same points), and reports an ``slo_breach`` anomaly finding
 when the windowed p99 stays over ``HVD_TPU_SERVING_SLO_P99_MS`` —
-which the JAX autopilot's ``serving-slo-scaleout`` policy turns into a
-fleet scale-out (the port's autopilot is not ported yet: the finding
-is counted, recorded and logged).
+which the autopilot's ``serving-slo-scaleout`` policy turns into a
+fleet scale-out.
 """
 
 from __future__ import annotations

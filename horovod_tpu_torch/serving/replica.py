@@ -32,8 +32,7 @@ in-process for tests) that:
   version, so its ``/generate`` keeps decoding with the weights the
   engine was built with (ROADMAP queue 3 item 10);
 * **drains** on SIGTERM (in ``main()``) or ``POST /drain`` (the JAX
-  replica also drains on a chaos/maintenance ``preemption`` notice; that
-  seam is open in the port, :mod:`horovod_tpu_torch.serving._seams`):
+  replica also drains on a chaos ``preemption`` notice):
   admission stops instantly
   (``/readyz`` → 503 so routers stop sending; new submits get
   :class:`DrainingError`), every in-flight request is answered, then
@@ -73,7 +72,6 @@ from horovod_tpu_torch.common.logging import get_logger
 from horovod_tpu_torch.diagnostics.flight_recorder import record_event
 from horovod_tpu_torch.runner.http_kv import ThreadedHTTPServer
 from horovod_tpu_torch.serving import metrics as smetrics
-from horovod_tpu_torch.serving._seams import chaos_fire
 from horovod_tpu_torch.serving.batcher import (DeadlineError, DrainingError,
                                                DynamicBatcher, SheddedError)
 
@@ -446,15 +444,15 @@ class ReplicaServer:
         return self._drained_event.wait(timeout_s)
 
     def _preemption_loop(self) -> None:
-        """Poll the ``preemption`` seam (a maintenance-event notice) and
-        drain on a notice. The seam is open in the port
-        (``horovod_tpu/serving/replica.py:427``; chaos is ROADMAP queue 1
-        item 7), so no notice arrives yet."""
+        """Poll the chaos ``preemption`` seam (a maintenance-event notice,
+        ``horovod_tpu/serving/replica.py:427``) and drain on a notice.
+        Nothing is evaluated with no plan armed."""
+        from horovod_tpu_torch import chaos
         poll_s = env_float("SERVING_PREEMPT_POLL_S", 0.2)
         while not self._stop.wait(poll_s):
             if self.batcher.draining:
                 return
-            applied = chaos_fire("preemption")
+            applied = chaos.fire("preemption")
             if any(kind == "notice" for _seam, kind in applied):
                 self.drain(source="preemption")
                 return
@@ -491,9 +489,15 @@ class ReplicaServer:
         t_handle = time.monotonic()
         wall_handle = time.time()
         # chaos seam ``serving.request`` (horovod_tpu/serving/replica.py
-        # :466: `error` -> 500, `shed` -> explicit 429, `delay` sleeps);
-        # open in the port, nothing is injected
-        kinds = {kind for _seam, kind in chaos_fire("serving.request")}
+        # :466): `error` raises inside fire() and answers 500 (the router
+        # must retry it to a survivor), `shed` is an explicit 429,
+        # `delay` sleeps in place (the router's hedge must cover it)
+        from horovod_tpu_torch import chaos
+        try:
+            applied = chaos.fire("serving.request")
+        except Exception as e:
+            return 500, {"id": req_id, "error": f"chaos: {e!r}"}
+        kinds = {kind for _seam, kind in applied}
         if "shed" in kinds:
             smetrics.inc_shed("chaos")
             return 429, {"id": req_id, "error": "chaos: injected shed"}
@@ -632,8 +636,13 @@ class ReplicaServer:
         t_handle = time.monotonic()
         wall_handle = time.time()
         # chaos seam ``serving.request`` (horovod_tpu/serving/replica.py
-        # :606); open in the port, nothing is injected
-        if "shed" in {kind for _seam, kind in chaos_fire("serving.request")}:
+        # :606), as in handle_infer
+        from horovod_tpu_torch import chaos
+        try:
+            applied = chaos.fire("serving.request")
+        except Exception as e:
+            return 500, {"id": req_id, "error": f"chaos: {e!r}"}
+        if "shed" in {kind for _seam, kind in applied}:
             smetrics.inc_shed("chaos")
             return 429, {"id": req_id, "error": "chaos: injected shed"}
         cached = self._cached_response(req_id)
@@ -940,10 +949,14 @@ def main(argv=None) -> int:
                         "instead of chasing the latest commit")
     args = p.parse_args(argv)
 
+    # the chaos plan (preemption notices, serving.request faults) arms
+    # from the environment as a training worker's does (JAX
+    # serving/replica.py:893); the fleet exports HVD_TPU_RANK=<slot>, so
+    # rank-scoped rules target one replica
+    from horovod_tpu_torch import chaos
+    chaos.install()
     # an uncaught exception leaves a flight dump in the autopsy
-    # directory (JAX serving/replica.py:900-902); the JAX replica also
-    # arms its chaos plan here (``chaos.install()``), which arrives with
-    # the port's control plane (ROADMAP queue 1 item 7)
+    # directory (JAX serving/replica.py:900-902)
     from horovod_tpu_torch.diagnostics.flight_recorder import \
         install_crash_hooks
     install_crash_hooks()

@@ -25,8 +25,7 @@ whatever planes exist):
   event stamped ``trace``/``span`` is a point node;
 * serving request logs (JSONL, rotated ``.1`` read first);
 * the OBS store (``HVD_TPU_OBS_DIR``): ``actions_rank<r>.jsonl``
-  decisions and re-mesh history points stamped with a trace (the port
-  writes neither until its autopilot and elastic planes exist; files a
+  decisions and re-mesh history points stamped with a trace (files a
   JAX job wrote read alike).
 """
 

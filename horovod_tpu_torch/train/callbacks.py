@@ -9,9 +9,9 @@ or used directly. ``StepTimer`` and ``TelemetryCallback`` carry the JAX
 callbacks' metric names, flight events and seams (profiling, goodput, time
 series, anomaly engine, the hang watchdog that ``TelemetryCallback`` arms
 and ``StepTimer.end_step`` feeds), in the same order;
-``CheckpointCallback`` saves through the native sharded store. One seam
-of the JAX callbacks waits for the chaos plane (ROADMAP queue 1 item 7):
-the chaos ``step_tick``.
+``CheckpointCallback`` saves through the native sharded store.
+``TelemetryCallback.on_step_begin`` fires the chaos ``step`` seam
+(``chaos.step_tick``) inside the timed window, as the JAX callback does.
 
 On the card a step's kernels run after the host has queued them: end a
 step once its results are read (``float(loss)``, as a loop that logs its
@@ -303,10 +303,12 @@ class TelemetryCallback:
         return args[0] if len(args) == 1 else (args or None)
 
     def on_step_begin(self) -> None:
-        # (the JAX callback calls the chaos step_tick after this, inside
-        # the timed window; the chaos harness arrives with the control
-        # plane)
         self.timer.start_step()
+        # chaos `step` seam (horovod_tpu/train/callbacks.py:292): after
+        # start_step, so an injected stall lands inside the timed window
+        # and the step-time series and anomaly engine see a slow step
+        from horovod_tpu_torch import chaos
+        chaos.step_tick(self._steps)
 
     def on_step_end(self, units: Optional[float] = None) -> None:
         dt = self.timer.end_step(

@@ -36,14 +36,21 @@ The JAX canary digests whole logical arrays, identical across every
 layout. A port rank holds only its shards, which differ from its tp, pp,
 sp and ep neighbours' by design, so the port compares digests over the dp
 axis group (the replicas of the same shards), and over the world only
-where there is no mesh. The chaos ``grad`` seam (``apply_injection``)
-arrives with the chaos harness (ROADMAP queue 1 item 7).
+where there is no mesh.
+
+The chaos ``grad`` seam: when the armed fault plan holds ``grad`` rules
+for this rank, :class:`GuardedStep` evaluates the seam at each step's
+index and :func:`guarded_apply` corrupts the synchronized gradients with
+:func:`apply_injection` before the verdict (``nan``/``inf``: the guard
+must skip the step; ``scale``: a finite spike only the canary can see).
+Without such a rule nothing is evaluated and no kernel is launched.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import zlib
 from typing import Iterable, List, Optional, Tuple
 
@@ -254,6 +261,39 @@ class Verdict:
     __bool__ = settle
 
 
+def apply_injection(grads, code: int, factor: float = 0.0):
+    """Chaos ``grad`` seam (``horovod_tpu/train/guard.py:99-115``):
+    corrupt every gradient of ``grads`` (a tensor or a tree of them) in
+    place and return ``grads``. ``code`` is a
+    :data:`horovod_tpu_torch.chaos.GRAD_CODES` value: 0 leaves the
+    gradients alone (no launch), 1 adds nan, 2 adds inf, 3 multiplies by
+    ``factor``, cast to each gradient's dtype first, as the JAX seam
+    casts it."""
+    code = int(code)
+    if code == 0:
+        return grads
+    if code not in (1, 2, 3):
+        raise ValueError(f"unknown grad injection code {code}")
+    for g in tree_leaves(grads):
+        if code == 1:
+            g.add_(float("nan"))
+        elif code == 2:
+            g.add_(float("inf"))
+        else:
+            g.mul_(float(torch.tensor(factor, dtype=torch.float32)
+                         .to(g.dtype)))
+    return grads
+
+
+#: the (code, factor) the running :class:`GuardedStep` drew from the
+#: ``grad`` seam for its step, read by :func:`guarded_apply`
+_INJECTION = threading.local()
+
+
+def _pending_injection() -> Tuple[int, float]:
+    return getattr(_INJECTION, "value", (0, 0.0))
+
+
 def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec,
                   pp_axis=None) -> Verdict:
     """Step ``optimizer`` on its parameters' gradients where the verdict
@@ -263,9 +303,15 @@ def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec,
     as ``found_inf`` and skips by itself, with no copy; any other
     optimizer steps, and every device tensor it changed is selected
     against a copy taken before. ``pp_axis`` as in :func:`grads_ok`.
-    Returns the :class:`Verdict`."""
+    A ``grad`` fault drawn by the running :class:`GuardedStep` corrupts
+    the gradients first. Returns the :class:`Verdict`."""
     params = [p for g in optimizer.param_groups for p in g["params"]
               if p.grad is not None]
+    code, factor = _pending_injection()
+    if code:
+        # on the synchronized gradients, as the JAX steps inject
+        # (horovod_tpu/train/overlap.py:366, pipeline.py:409)
+        apply_injection([p.grad for p in params], code, factor)
     with record_function("hvd.guard"):
         ok = grads_ok([p.grad for p in params], spec, pp_axis)
         if _takes_found_inf(optimizer):
@@ -451,7 +497,17 @@ class GuardedStep:
 
     def __call__(self, model, optimizer, batch):
         self.flush()
-        model, optimizer, loss, ok = self._fn(model, optimizer, batch)
+        # chaos ``grad`` seam (horovod_tpu/train/guard.py:399-406): drawn
+        # only while a grad rule is armed for this rank, applied by
+        # guarded_apply inside the step
+        from horovod_tpu_torch import chaos
+        inject = (chaos.grad_injection(self._step)
+                  if chaos.grad_rules_armed() else (0, 0.0))
+        _INJECTION.value = inject
+        try:
+            model, optimizer, loss, ok = self._fn(model, optimizer, batch)
+        finally:
+            _INJECTION.value = (0, 0.0)
         self._pending = (self._step, ok)
         if self.canary is not None:
             self.canary.maybe_check(self._step, model, self.canary_axis)

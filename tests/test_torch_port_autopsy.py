@@ -243,17 +243,19 @@ def _bundle_files(bundle):
 
 @pytest.fixture
 def no_earlier_evidence(monkeypatch):
-    """Both packages' serving exemplars and the JAX autopilot's decisions
-    empty: earlier tests of this process fill the JAX ones, which are set
-    aside and put back after (the port's autopsy writes ``actions: []``
-    until its autopilot exists), as are the JAX flight ring, goodput
-    ledger and profile manager that a JAX bundle reads or flushes."""
+    """Both packages' serving exemplars and autopilot decisions empty:
+    earlier tests of this process fill them (a serving test's SLO finding
+    leaves an ``observe`` decision), so the engines are set aside and put
+    back after, as are the JAX flight ring, goodput ledger and profile
+    manager that a JAX bundle reads or flushes."""
     from horovod_tpu import autopilot as j_autopilot
     from horovod_tpu.metrics import goodput as j_goodput
     from horovod_tpu.profiling import manager as j_manager
     from horovod_tpu.serving import ledger as j_ledger
+    from horovod_tpu_torch import autopilot as t_autopilot
     from horovod_tpu_torch.serving import ledger as t_ledger
-    for mod, name in ((j_autopilot, "_ENGINE"), (j_ledger, "_default_ring"),
+    for mod, name in ((j_autopilot, "_ENGINE"), (t_autopilot, "_ENGINE"),
+                      (j_ledger, "_default_ring"),
                       (j_goodput, "_LEDGER"), (j_manager, "_MANAGER"),
                       (j_flight, "_RECORDER")):
         monkeypatch.setattr(mod, name, None)

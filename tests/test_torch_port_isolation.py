@@ -60,7 +60,13 @@ CONTROL_PLANE = ("common.retry", "runner.hosts", "runner.safe_exec",
                  "runner.elastic.registration", "runner.elastic.journal",
                  "runner.elastic.driver", "elastic.notification",
                  "elastic.outage", "elastic.remesh", "elastic.__init__",
-                 "torch.elastic")
+                 "torch.elastic",
+                 # the chaos plane, preemption, the autopilot, the rollout
+                 "chaos.__init__", "chaos.plan", "elastic.preemption",
+                 "runner.gpu_discovery", "autopilot.__init__",
+                 "autopilot.policy", "autopilot.engine", "autopilot.actions",
+                 "serving.rollout.__init__", "serving.rollout.comparator",
+                 "serving.rollout.controller")
 
 
 def _covered(modules):
@@ -81,7 +87,8 @@ def test_observability_modules_are_covered():
 
 
 def test_control_plane_modules_are_covered():
-    """So is every module of the launcher and elastic slice."""
+    """So is every module of the launcher and elastic slice, and of the
+    chaos, preemption, autopilot and rollout slice."""
     _covered(CONTROL_PLANE)
 
 

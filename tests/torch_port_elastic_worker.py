@@ -27,6 +27,29 @@ gradients (``grads_healed.rank<r>.pt``). ``--kill RANK:STEP`` makes that
 rank ``os._exit(1)`` right after its commit of STEP, once;
 ``--marker-at STEP:NAME`` makes rank 0 create ``DIR/NAME`` after that
 commit (the discovery scripts of the growth and shrink tests read it).
+
+Under a fault plan (``HVD_TPU_FAULT_PLAN``) each step begins with the
+chaos ``step`` seam at the committed step count (a ``tick`` event comes
+just before it, so a kill's time is the killed PID's last tick). With
+``--guard`` the step is the guarded overlap engine
+(``make_overlap_train_step``), and a step whose ``grad`` fault the guard
+skipped is a ``guard_skip`` event saying whether the parameters and the
+optimizer state stayed bit-equal. ``--ckpt-every N`` makes rank 0 save the
+model to ``DIR/model_ckpt`` every N steps (a waited sharded save, so an
+injected ``checkpoint.write`` error is a ``ckpt`` event with ``ok`` false).
+A rank whose preemption watcher published a drain notice records a
+``drain_notice`` event (``at``: the notice's time). ``--until-size N``
+keeps stepping past ``--steps`` until the world is N again (a drained
+slot re-admitted) and ``--min-generation G`` until the world's
+generation is at least G, two steps into that world, and ``--until-marker
+PATH:N`` until N steps after PATH appeared, at most ``4 x --steps``. ``--local`` trains
+each rank's own replica with no collective a step (rows drawn from a
+seeded generator), each step inside a ``StepTimer`` with the chaos tick
+in its timed window, so a stalled rank shows as the fleet's straggler.
+``--outage-autopsy`` makes a rank that finds the driver unreachable at a
+commit write one hang autopsy (``outage_autopsy`` event: its
+``driver_outage``). ``done`` carries the rank's chaos counters and its
+re-mesh episodes.
 """
 
 import argparse
@@ -58,12 +81,28 @@ def _args(argv):
                     help="elastic: rows a rank takes a step")
     ap.add_argument("--corpus", type=int, default=0,
                     help="elastic: corpus rows (default: enough for "
-                         "--steps at 3 ranks)")
+                         "--steps at 3 ranks, or 4x that for a run that "
+                         "may step on)")
     ap.add_argument("--kill", default="", help="RANK:STEP")
     ap.add_argument("--marker-at", default="", help="STEP:NAME")
     ap.add_argument("--save-commit", type=int, default=-1)
     ap.add_argument("--sleep", type=float, default=0.0,
                     help="seconds after each commit")
+    ap.add_argument("--guard", action="store_true",
+                    help="elastic: the guarded overlap step")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="elastic: rank 0 saves the model every N steps")
+    ap.add_argument("--until-size", type=int, default=0,
+                    help="elastic: step on until the world has N ranks")
+    ap.add_argument("--min-generation", type=int, default=0,
+                    help="elastic: step on until this generation")
+    ap.add_argument("--local", action="store_true",
+                    help="elastic: unsynchronized local steps, timed")
+    ap.add_argument("--outage-autopsy", action="store_true",
+                    help="elastic: an autopsy during a driver outage")
+    ap.add_argument("--until-marker", default="",
+                    help="elastic: PATH:N, step on until N steps after "
+                         "PATH exists")
     return ap.parse_args(argv)
 
 
@@ -95,6 +134,60 @@ def _digest(model) -> str:
     for t in model.state_dict().values():
         h.update(t.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def _opt_digest(opt) -> str:
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for st in opt.state_dict()["state"].values():
+        for k in sorted(st):
+            v = st[k]
+            if isinstance(v, torch.Tensor):
+                h.update(v.detach().float().cpu().numpy().tobytes())
+            else:
+                h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def _chaos_record() -> dict:
+    """This process's ``hvd_chaos_injected_total`` by ``seam/kind``, how
+    often it armed the plan, its drain notices, its re-mesh episodes from
+    the flight ring, its anomaly findings and its autopilot counters."""
+    import re
+
+    from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+    from horovod_tpu_torch.metrics.registry import default_registry
+    snap = default_registry().snapshot()
+    injected = {}
+    for k, v in snap.items():
+        m = re.match(r'hvd_chaos_injected_total\{kind="([^"]+)",'
+                     r'seam="([^"]+)"\}', k)
+        if m:
+            injected[f"{m.group(2)}/{m.group(1)}"] = int(v["value"])
+    episodes = [{f: e.get(f) for f in ("trigger", "total_s",
+                                        "failure_detect_s", "drain_s",
+                                        "rendezvous_s", "rebuild_s",
+                                        "restore_s", "first_step_s",
+                                        "generation", "ts")}
+                for e in recorder().events()
+                if e["kind"] == "remesh_complete"]
+    from horovod_tpu_torch.metrics import anomaly
+    findings = [{f: x.get(f) for f in ("kind", "ts", "rank", "trace")}
+                for x in anomaly.recent_findings()]
+    return {"injected": injected, "episodes": episodes,
+            "findings": findings,
+            "autopilot": {k: v["value"] for k, v in snap.items()
+                          if k.startswith("hvd_autopilot_")
+                          and "value" in v},
+            # each arming (a rank this process held) restarts the seams'
+            # invocation counters, as in the JAX package
+            "armed": sum(1 for e in recorder().events()
+                         if e["kind"] == "chaos_armed"),
+            "drain_notices": int(sum(
+                v["value"] for k, v in snap.items()
+                if k.startswith("hvd_drain_notices_total")))}
 
 
 def _remesh_record() -> dict:
@@ -181,7 +274,9 @@ def elastic_main(args) -> int:
     model = _model(args)
     dev = next(model.parameters()).device
     cfg = model.cfg
-    n = args.corpus or 3 * args.rows * args.steps
+    # a run that may step past --steps (at most 4x) draws from 4x the rows
+    longer = args.until_size or args.min_generation or args.until_marker
+    n = args.corpus or 3 * args.rows * args.steps * (4 if longer else 1)
     tokens, targets = corpus(cfg, n)
     sampler = ElasticSampler(list(range(n)), shuffle=True, seed=0)
     opt = init_opt_state(adamw, model)
@@ -195,34 +290,162 @@ def elastic_main(args) -> int:
 
     state.register_reset_callbacks([on_reset])
 
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch.elastic import preemption
+    ckpt = None
+    if args.ckpt_every and hvd.rank() == 0:
+        from horovod_tpu_torch.checkpoint import (ShardedCheckpointer,
+                                                  model_state)
+        ckpt = ShardedCheckpointer(os.path.join(out, "model_ckpt"),
+                                   rank=0, world_size=1)
+    noticed = {"done": False}
+
+    def note_drain(step) -> None:
+        """A ``drain_notice`` event once this process's watcher published
+        (after a step, or at exit: the drained process leaves from its
+        commit)."""
+        if not preemption.draining() or noticed["done"]:
+            return
+        from horovod_tpu_torch.diagnostics.flight_recorder import recorder
+        at = [e["ts"] for e in recorder().events()
+              if e["kind"] == "preemption_notice"]
+        noticed["done"] = True
+        # the launched rank: at exit the group is already gone
+        _emit(out, "drain_notice", rank=int(os.environ.get("HOROVOD_RANK",
+                                                          "-1")), step=step,
+              at=at[-1] if at else None,
+              counted=_chaos_record()["drain_notices"])
+
+    import atexit
+    atexit.register(lambda: note_drain(state.step))
+
+    def loss_fn(m, batch):
+        from horovod_tpu_torch.models.transformer import forward_loss_spmd
+        loss, aux = forward_loss_spmd(m, batch[0], batch[1], None)
+        return loss + 0.01 * aux
+
+    def grad_fires(guarded) -> bool:
+        """Will the guarded step's next call draw a grad fault?"""
+        eng = chaos.engine()
+        return eng is not None and any(
+            r.decides_fire(eng.plan.seed, guarded._step) and not (
+                r.marker and os.path.exists(
+                    r.marker.replace("{rank}", str(eng.rank))))
+            for r in eng.plan.rules_for("grad", eng.rank))
+
+    seen = {}
+
+    def finished(state) -> bool:
+        if args.until_marker:
+            # one verdict for every rank (each step's collectives must
+            # pair): the marker is seen once any rank sees it
+            path, n = args.until_marker.rsplit(":", 1)
+            if any(allgather_object(os.path.exists(path))):
+                seen.setdefault("at", state.step)
+            if state.step < seen.get("at", 4 * args.steps) + int(n):
+                return state.step >= 4 * args.steps
+        if state.step < args.steps:
+            return False
+        if state.step >= 4 * args.steps:
+            return True
+        gen = int(os.environ.get("HVD_ELASTIC_GENERATION", "0"))
+        if seen.get("gen") != gen:
+            seen.update(gen=gen, since=state.step)
+        # a world reached by a re-mesh takes two steps before the end, so
+        # a re-admitted process trains too
+        settled = not (args.until_size or args.min_generation) or \
+            state.step - seen["since"] >= 2
+        return (not args.until_size or hvd.size() == args.until_size) \
+            and gen >= args.min_generation and settled
+
+    autopsied = {"done": False}
+
+    def keep_commit() -> None:
+        """Rank 0 saves the commit of ``--save-commit`` (``commit.pt``)."""
+        if hvd.rank() == 0 and state.step == args.save_commit:
+            torch.save({"torch_snaps": state.torch_snaps,
+                        "step": state.step}, os.path.join(out, "commit.pt"))
+
     @elastic.run
     def train(state):
         mesh = hvd.build_mesh(dp=hvd.size())
-        step = make_train_step(cfg, mesh)
-        while state.step < args.steps:
-            sampler.reset()
-            mine = list(iter(sampler))[:args.rows]
-            rows = [i for part in allgather_object(mine) for i in part]
+        if args.guard:
+            step = hvd.make_overlap_train_step(loss_fn, mesh)
+        elif args.local:
+            from horovod_tpu_torch.train.callbacks import StepTimer
+            step, timer = make_train_step(cfg), StepTimer(unit="examples")
+        else:
+            step = make_train_step(cfg, mesh)
+        while not finished(state):
+            _emit(out, "tick", rank=hvd.rank(), step=state.step)
+            if args.local:
+                # each rank's own rows; the tick (a stall) inside the
+                # timed window, as TelemetryCallback.on_step_begin fires it
+                rng = np.random.RandomState(1000 * state.step + hvd.rank())
+                rows = mine = sorted(rng.choice(n, args.rows, False).tolist())
+                timer.start_step()
+                chaos.step_tick(state.step)
+            else:
+                chaos.step_tick(state.step)
+                sampler.reset()
+                mine = list(iter(sampler))[:args.rows]
+                rows = [i for part in allgather_object(mine) for i in part]
             tok = torch.from_numpy(tokens[mine]).to(dev)
             tgt = torch.from_numpy(targets[mine]).to(dev)
-            _, _, loss, _ = step(model, opt, tok, tgt)
+            if args.guard:
+                before = (_digest(model), _opt_digest(opt)) \
+                    if grad_fires(step) else None
+                skipped = step.skipped
+                _, _, loss = step(model, opt, (tok, tgt))
+                step.flush()
+                if step.skipped > skipped:
+                    _emit(out, "guard_skip", rank=hvd.rank(),
+                          step=state.step + 1, expected=before is not None,
+                          same_state=before == (_digest(model),
+                                                _opt_digest(opt)))
+            else:
+                _, _, loss, _ = step(model, opt, tok, tgt)
             loss = float(loss)
+            if args.local:
+                timer.end_step(args.rows)
             if healed["pending"]:
                 healed["pending"] = False
                 torch.save({k: p.grad.detach().cpu()
                             for k, p in model.named_parameters()},
                            os.path.join(out, f"grads_healed.rank"
                                         f"{hvd.rank()}.pt"))
-            sampler.record_indices(rows)
+            if not args.local:
+                sampler.record_indices(rows)
             state.step += 1
-            state.commit()
+            try:
+                state.commit()
+            except elastic.HostsUpdatedInterrupt:
+                # commit() takes its snapshot before it checks for a newer
+                # world: a survivor whose check already sees the healed
+                # world (the driver reaped the killed rank first) still
+                # committed this step
+                keep_commit()
+                raise
+            keep_commit()
+            if args.outage_autopsy and not autopsied["done"]:
+                from horovod_tpu_torch.elastic import outage
+                if outage.active():
+                    from horovod_tpu_torch.diagnostics.autopsy import \
+                        write_autopsy
+                    bundle = write_autopsy(
+                        os.path.join(out, f"outage_rank{hvd.rank()}"),
+                        reason="driver_outage", fetch_peers=False)
+                    summary = [f for f in os.listdir(bundle)
+                               if f.startswith("summary_rank")]
+                    with open(os.path.join(bundle, summary[0])) as f:
+                        doc = json.load(f)
+                    autopsied["done"] = True
+                    _emit(out, "outage_autopsy", rank=hvd.rank(),
+                          step=state.step,
+                          driver_outage=doc["driver_outage"])
             _emit(out, "step", rank=hvd.rank(), size=hvd.size(),
                   step=state.step, loss=loss, rows=rows,
                   generation=os.environ.get("HVD_ELASTIC_GENERATION"))
-            if hvd.rank() == 0 and state.step == args.save_commit:
-                torch.save({"torch_snaps": state.torch_snaps,
-                            "step": state.step},
-                           os.path.join(out, "commit.pt"))
             if marker and hvd.rank() == 0 and state.step == int(marker[0]):
                 open(os.path.join(out, marker[1]), "w").close()
             once = os.path.join(out, "killed_once")
@@ -231,16 +454,43 @@ def elastic_main(args) -> int:
                 open(once, "w").close()
                 _emit(out, "kill", rank=hvd.rank(), step=state.step)
                 os._exit(1)
+            if ckpt is not None and state.step % args.ckpt_every == 0:
+                try:
+                    ckpt.save(state.step, {"model": model_state(model)},
+                              wait=True)
+                    _emit(out, "ckpt", step=state.step, ok=True)
+                except OSError as e:
+                    _emit(out, "ckpt", step=state.step, ok=False,
+                          error=str(e))
+            note_drain(state.step)
             if args.sleep:
                 time.sleep(args.sleep)
 
     train(state)
+    if ckpt is not None:
+        ckpt.close()
     _emit(out, "done", rank=hvd.rank(), size=hvd.size(), step=state.step,
           digest=_digest(model), remesh=_remesh_record(),
-          launches=_launches(),
+          launches=_launches(), chaos=_chaos_record(),
           generation=os.environ.get("HVD_ELASTIC_GENERATION"))
     hvd.shutdown()
     return 0
+
+
+def soak_plan(out) -> dict:
+    """The compound plan of the chaos soak (the CPU test's and
+    ``chip_smoke.py``'s ``[chaos_soak]``): a grad NaN at guarded step 2
+    on every rank, one checkpoint write error on rank 0, a KV blackout over
+    each arming's first two requests, and rank 1 killed at step 3, each
+    rank once (``{rank}`` markers under ``out``)."""
+    return {"seed": 7, "faults": [
+        {"seam": "grad", "kind": "nan", "start": 2, "stop": 3,
+         "marker": os.path.join(str(out), "nan_{rank}")},
+        {"seam": "checkpoint.write", "kind": "io_error", "rank": 0,
+         "count": 1},
+        {"seam": "kv.request", "kind": "blackout", "start": 0, "stop": 2},
+        {"seam": "step", "kind": "kill", "rank": 1, "start": 3, "stop": 4,
+         "marker": os.path.join(str(out), "killed_{rank}")}]}
 
 
 def events(out) -> list:
