@@ -96,7 +96,8 @@ The tensor, sequence and expert slice adds four phases:
 * ``[tp_sp]``: the dense flagship on ``{sp:2, tp:2}``; ``[moe_ep_sp]``:
   with 4 experts, top-2, capacity 1.25 on ``{ep:2, sp:2}``. Each is a
   4-rank gloo world on ``cuda:0`` (``--gloo-rank DIR ROLE``, killed at
-  ``GLOO_TIMEOUT_S``) at full width, 3 AdamW steps of
+  ``GLOO_TIMEOUT_S``) at full width and LAYOUT_LAYERS layers (the layout
+  phases, the pipelines and ``[autotune]`` cut depth), 3 AdamW steps of
   ``make_train_step(cfg, mesh)`` from the seed-0 weights sliced for each
   rank. Checks: every rank reports the same loss each step; step 1's loss
   within LAYOUT_LOSS_TOL of the layout's fp32 loss on the CPU (plain
@@ -133,8 +134,9 @@ The pipeline slice adds four phases:
   stages, and every leaf across its replicas, after every step; the bf16
   gradient held in floors as MoE's.
 * ``[pipeline_1f1b]`` and ``[pipeline_interleaved]``: two gloo ranks of
-  ``make_pipeline_train_step`` over ``{pp:2}`` (1F1B; interleaved with two
-  chunks of one layer a rank), PIPELINE_MICRO microbatches, the
+  ``make_pipeline_train_step`` over ``{pp:2}`` (1F1B over two layers, one
+  a rank; interleaved over four, two chunks of one layer a rank),
+  PIPELINE_MICRO microbatches, the
   flagship's block as ``layer_fn`` and ``ln_f``, the tied head (held
   fixed) and the fused xent as ``loss_fn``, on the seed-0 embedding of the
   seed-1 tokens, PIPELINE_STEPS fused AdamW steps. Checks: the fp32
@@ -142,7 +144,8 @@ The pipeline slice adds four phases:
   PIPELINE_FP32_TOL of the pp = 1 step in one process (the overlap
   engine, an NCCL world of one), step 1's bf16 loss within
   PIPELINE_LOSS_TOL of its fp32 loss, equal losses on both ranks,
-  ``flash_attn_fwd`` 8 times a step on each rank and ``xent_fwd`` 4 times
+  ``flash_attn_fwd`` a rank's layers x 4 times a step on each rank (one
+  process's references at both depths) and ``xent_fwd`` 4 times
   on the rank holding the last chunk, each held against its plain version
   on the rank's own inputs, and a NaN step skipped on both stages with the
   guard's device work under ``set_sync_debug_mode("error")``. Each prints
@@ -151,7 +154,8 @@ The pipeline slice adds four phases:
   rows, microbatches of two), beside the analytic one (no limit: gloo
   ranks on one card price no layout).
 * ``[autotune]``: in the one-process world, ``make_overlap_train_step(...,
-  autotune=...)`` over AUTOTUNE_PLANS with a budget of AUTOTUNE_BUDGET
+  autotune=...)`` over AUTOTUNE_PLANS (the flagship at LAYOUT_LAYERS
+  layers) with a budget of AUTOTUNE_BUDGET
   steps locks one plan, and a second build over the same cache directory
   locks it with zero trials.
 
@@ -309,10 +313,13 @@ full width and depth (host, socket and process code: no kernel of its own;
 flash_attn_fwd and xent_fwd run in every rank's step), each phase's launch
 counts in ``hvdrun_launches`` and ``elastic_launches``:
 
-* ``[hvdrun]``: ``python -m horovod_tpu_torch.runner.launch -np 1 -H
-  localhost:1 python tests/torch_port_elastic_worker.py static``, an NCCL
-  world of one taking TRAIN_STEPS AdamW steps of ``make_train_step(cfg,
-  mesh)`` on ``entry()``'s batch. Checks: the launcher's identity reached
+* ``[hvdrun]``: ``python -m horovod_tpu_torch.runner.launch --tpu python
+  tests/torch_port_elastic_worker.py static``, the host read from a fake
+  GCE metadata server in this process (``FakeMetadata``, its
+  ``worker-network-endpoints`` POD_ENDPOINTS, this host; one slot from
+  the card count), an NCCL world of one taking TRAIN_STEPS AdamW steps of
+  ``make_train_step(cfg, mesh)`` on ``entry()``'s batch. Checks: the
+  metadata server was read; the launcher's identity reached
   the worker (rank 0, size 1, the rendezvous at 127.0.0.1 on a port, no
   elastic generation: a static launch); its losses equal ``[train]``'s to
   the bit when ``[train]`` repeated in this process is bit-equal to
@@ -335,6 +342,37 @@ counts in ``hvdrun_launches`` and ``elastic_launches``:
   DP_GRAD_TOL rel L2); the seconds from the kill to the healed world's
   first completed step, with every phase's seconds; the journal replays
   to the driver's final state.
+
+The agent-transport slice adds two phases (host, socket and process code:
+no kernel of its own; flash_attn_fwd and xent_fwd run in every rank's
+step), the launches in ``agent_launches``:
+
+* ``[nic_probe]``: two task services started as ``python -m
+  horovod_tpu_torch.runner.task_server --index i`` with the secret on
+  stdin (the remote half of ``probe_coordinator_address`` without the
+  ``ssh``). Checks: both answer ``addresses`` (this host's interfaces)
+  and ``probe`` (each reaches the other), a client with a wrong secret
+  gets 403, ``pick_rendezvous_address`` over ``find_routable_interfaces``
+  picks one of this host's addresses, not loopback where it has another
+  IPv4 interface, and both exit 0 on ``shutdown``; prints the
+  interfaces and the pick.
+* ``[agent_elastic]``: ``run_agent_elastic`` over three host agents that
+  ``tests/torch_port_elastic_worker.py``'s ``start_local_agents`` starts
+  as processes (each its own process group, secrets on stdin), registered
+  under the NIC probe's pick, where every world rendezvouses. The payload
+  is the elastic trainer of the flagship at full width and depth on
+  ``cuda:0`` (three gloo ranks, ELASTIC_ROWS rows a step, until the world
+  is three again). After its commit of step ELASTIC_KILL[1], rank
+  ELASTIC_KILL[0] SIGKILLs its process group: its agent dies with it. The
+  heartbeat expires (``STALE_S``), the world shrinks to two in place, the
+  respawned agent registers and the world grows back to three. Checks:
+  the results come from the three ranks of the final world, the survivors
+  keep their PIDs and the grown rank is the one new process; the digests
+  equal; the healed world's first step against one process from the
+  commit (DP_LOSS_TOL, DP_GRAD_TOL); both survivors re-meshed twice
+  (``internal_error``, then ``hosts_updated``); both kernels launched on
+  every final rank. Prints the heartbeat expiry and each re-mesh's
+  seconds by phase.
 
 The eager-collectives slice adds four phases (host, socket and ctypes
 code: no kernel of its own), the C++ core built from ``cpp/`` with g++
@@ -439,8 +477,14 @@ rank's launches in ``chaos_launches``; every training rank must launch
   clean candidate is promoted through every stage. Zero failed requests;
   the kernels never run (the decode path is plain torch).
 
-Every phase prints one line; any failure raises and exits non-zero, and
-nothing falls back to the CPU. The last lines are the card's name and
+Independent worlds share the card side by side to keep the script well
+inside its time: the three layout worlds; ``[zoo_dp_gloo_2rank]`` and
+``[bert_tp_gloo_2rank]``; ``[obs_fleet_4rank]``, ``[obs_hang_autopsy]``
+and ``[nic_probe]``; ``[hvdrun]``, ``[elastic_recover]`` and
+``[agent_elastic]``; ``[driver_chaos]`` and ``[autopilot_straggler]``.
+Their checks hold whatever the load; their printed seconds are of a
+shared card and host. Every phase prints one line; any failure raises and
+exits non-zero, and nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -502,6 +546,13 @@ LAYOUT_PHASES = {"tp_sp": (False, {"sp": 2, "tp": 2}),
                  "moe_ep_sp": (True, {"ep": 2, "sp": 2}),
                  "pp_tp": (False, {"pp": 2, "tp": 2})}
 LAYOUT_STEPS = 3
+# the depth of the layout phases, the pipelines and [autotune]: their
+# checks are of the sharding, the schedules and the plan search, which one
+# layer a stage exercises as well as two, and their worlds price nothing a
+# user runs; the cut pays for the agent transport's phases within the
+# script's time. A pipeline takes LAYOUT_LAYERS layers a virtual stage
+# (the interleaved schedule's four chunks over pp = 2 need four)
+LAYOUT_LAYERS = 2
 PP_MICRO = 2              # the flagship's microbatches under pp ([pp_tp])
 # step 1's bf16 loss against the fp32 CPU loss of the layout, relative
 # (2.3e-5 to 2.5e-5 on an H100: at init the loss sits near ln V and moves
@@ -623,6 +674,11 @@ OBS_HANG_WATCHDOG_S = 5   # [obs_hang_autopsy]
 OBS_HANG_STALL = 3        # rank 1 sleeps this many watchdog timeouts
 OBS_HANG_STEPS = 3        # the stall comes before the last step's sync
 HVDRUN_TIMEOUT_S = 300    # [hvdrun]: each launcher call
+# [hvdrun]'s pod, as the metadata server's worker-network-endpoints: this
+# host alone (<uuid>:<worker name>:<address>)
+POD_ENDPOINTS = "smoke:w-0:127.0.0.1"
+AGENT_TIMEOUT_S = 420     # [agent_elastic]: the whole agent-elastic run
+NIC_PROBE_TIMEOUT_S = 30  # [nic_probe]: a task server's port line
 ELASTIC_STEPS = 5         # [elastic_recover]: steps of the run
 ELASTIC_KILL = (2, 3)     # rank 2 exits after its commit of step 3
 ELASTIC_ROWS = 8          # rows a rank takes a step (the flagship's B)
@@ -1712,15 +1768,30 @@ def phase_guard(torch, dev):
           "guard: the skipped step changed the parameters or the state")
 
 
-def layout_cfg(moe: bool, sizes=None):
-    """The flagship at full width; with 4 experts, top-2, capacity 1.25
-    (the dry run's MoE config) for an MoE phase, and PP_MICRO pipeline
-    microbatches for a layout with pp."""
+def layout_cfg(moe: bool, sizes=None, depth=None):
+    """The flagship at full width (cut to ``depth`` layers when given);
+    with 4 experts, top-2, capacity 1.25 (the dry run's MoE config) for an
+    MoE phase, and PP_MICRO pipeline microbatches for a layout with pp."""
     from horovod_tpu_torch.entry import _flagship_cfg
     cfg = _flagship_cfg()
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     if (sizes or {}).get("pp", 1) > 1:
         cfg = dataclasses.replace(cfg, n_microbatches=PP_MICRO)
     return dataclasses.replace(cfg, n_experts=4) if moe else cfg
+
+
+def depth_flagship(torch, dev, depth):
+    """``entry()``'s flagship at full width cut to ``depth`` layers, with
+    the seed-0 weights of the cut configuration."""
+    import numpy as np
+    from horovod_tpu_torch.models import (Transformer, from_jax_params,
+                                          init_params)
+    cfg = layout_cfg(False, depth=depth)
+    model = Transformer(cfg, dev)
+    model.load_state_dict(from_jax_params(init_params(
+        np.random.RandomState(0), cfg)))
+    return model
 
 
 def flagship_batch(cfg):
@@ -1866,7 +1937,7 @@ def layout_rank_main(out_dir: str, role: str) -> int:
     hvd.init()
     r = hvd.rank()
     moe, sizes = LAYOUT_PHASES[role]
-    cfg = layout_cfg(moe, sizes)
+    cfg = layout_cfg(moe, sizes, LAYOUT_LAYERS)
     mesh = hvd.build_mesh(**sizes)
     dev = hvd.device()
     sd = shard_params(init_params(np.random.RandomState(0), cfg), cfg, mesh)
@@ -1971,7 +2042,8 @@ def layout_reference_grads(torch, moe: bool, sizes: dict, dev,
     import numpy as np
     from horovod_tpu_torch.models import (Transformer, forward_loss_spmd,
                                           from_jax_params, init_params)
-    cfg = dataclasses.replace(layout_cfg(moe), dtype=dtype)
+    cfg = dataclasses.replace(layout_cfg(moe, depth=LAYOUT_LAYERS),
+                              dtype=dtype)
     model = Transformer(cfg, dev)     # one stage: pp needs no grouping
     model.load_state_dict(from_jax_params(init_params(
         np.random.RandomState(0), cfg)))
@@ -2030,7 +2102,7 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
     moe, sizes = LAYOUT_PHASES[role]
     n = math.prod(sizes.values())
-    cfg = layout_cfg(moe, sizes)
+    cfg = layout_cfg(moe, sizes, LAYOUT_LAYERS)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=f"{role}_") as out_dir:
         _run_gloo_ranks(out_dir, n, role, role)
@@ -2193,8 +2265,14 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
     return [rr["launches"] for rr in res]
 
 
-def pipeline_model(torch, dev, dtype):
-    """The flagship at full width as a layer-major model for
+def pipeline_depth(role: str) -> int:
+    """A pipeline phase's layers: LAYOUT_LAYERS a virtual stage."""
+    return LAYOUT_LAYERS * PIPELINE_PHASES[role][1]
+
+
+def pipeline_model(torch, dev, dtype, depth):
+    """The flagship at full width, ``depth`` layers, as a layer-major
+    model for
     ``make_pipeline_train_step``: ``layer_fn`` its block, ``loss_fn``
     ``ln_f``, the tied head (both held fixed) and the fused xent; the
     seed-0 weights and the seed-0 embedding of the seed-1 tokens.
@@ -2203,7 +2281,7 @@ def pipeline_model(torch, dev, dtype):
     from horovod_tpu_torch.models import init_params
     from horovod_tpu_torch.models.transformer import _block, _rmsnorm
     from horovod_tpu_torch.ops.xent import fused_softmax_xent
-    cfg = dataclasses.replace(layout_cfg(False), dtype=dtype)
+    cfg = dataclasses.replace(layout_cfg(False, depth=depth), dtype=dtype)
     p0 = init_params(np.random.RandomState(0), cfg)
     emb = torch.from_numpy(p0["embed"]).to(dev).to(dtype)
     ln_f = torch.from_numpy(p0["ln_f"]).to(dev)
@@ -2256,7 +2334,6 @@ def single_rank_main(out_dir: str) -> int:
     import torch
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.entry import entry
     from horovod_tpu_torch.models import adamw, lm_loss
     from horovod_tpu_torch.ops import attention, quantize, xent
     from horovod_tpu_torch.profile_step import DP_MICRO
@@ -2268,28 +2345,34 @@ def single_rank_main(out_dir: str) -> int:
     dev = hvd.device()
     mesh = hvd.build_mesh(dp=1)
     res = {}
-    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        cfg, layer_fn, loss_fn, layers, batch = pipeline_model(torch, dev,
-                                                               dtype)
+    for depth in sorted({pipeline_depth(role) for role in PIPELINE_PHASES}):
+        ref = res[str(depth)] = {}
+        for name, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            cfg, layer_fn, loss_fn, layers, batch = pipeline_model(
+                torch, dev, dtype, depth)
+            step = make_pipeline_train_step(
+                layer_fn, loss_fn, n_layers=cfg.n_layers, mesh=mesh, pp=1,
+                n_micro=PIPELINE_MICRO, device=dev)
+            p = step.prepare_params(layers)
+            opt = adamw(p.parameters())
+            ref[f"{name}_losses"], ref[f"{name}_step_ms"] = pipeline_steps(
+                torch, step, p, opt, batch)
+            if name == "fp32":
+                torch.save({k: v.cpu() for k, v in
+                            step.restore_params(p).items()},
+                           os.path.join(out_dir,
+                                        f"single_params_L{depth}.pt"))
+        half = tuple(t[:t.shape[0] // 2] for t in batch)
         step = make_pipeline_train_step(
             layer_fn, loss_fn, n_layers=cfg.n_layers, mesh=mesh, pp=1,
-            n_micro=PIPELINE_MICRO, device=dev)
+            n_micro=PIPELINE_MICRO // 2, device=dev)
         p = step.prepare_params(layers)
-        opt = adamw(p.parameters())
-        res[f"{name}_losses"], res[f"{name}_step_ms"] = pipeline_steps(
-            torch, step, p, opt, batch)
-        if name == "fp32":
-            torch.save({k: v.cpu() for k, v in step.restore_params(p).items()},
-                       os.path.join(out_dir, "single_params.pt"))
-    half = tuple(t[:t.shape[0] // 2] for t in batch)
-    step = make_pipeline_train_step(
-        layer_fn, loss_fn, n_layers=cfg.n_layers, mesh=mesh, pp=1,
-        n_micro=PIPELINE_MICRO // 2, device=dev)
-    p = step.prepare_params(layers)
-    _, res["share_step_ms"] = pipeline_steps(torch, step, p,
-                                             adamw(p.parameters()), half)
+        _, ref["share_step_ms"] = pipeline_steps(
+            torch, step, p, adamw(p.parameters()), half)
 
-    _, (model, tokens, targets) = entry()
+    model = depth_flagship(torch, dev, LAYOUT_LAYERS)
+    tokens, targets = (t.to(dev) for t in flagship_batch(model.cfg))
     counters = {"flash_attention_fwd": attention.flash_attn_fwd_cuda,
                 "xent_fwd": xent.xent_fwd_cuda,
                 **{fn.__name__[:-len("_cuda")]: fn
@@ -2376,8 +2459,10 @@ def pipeline_rank_main(out_dir: str, role: str) -> int:
             virtual_stages=v, device=dev)
 
     res = {"rank": r, "pp_index": mesh.axis("pp").index}
+    depth = pipeline_depth(role)
     cfg, layer_fn, loss_fn, layers, batch = pipeline_model(torch, dev,
-                                                           torch.float32)
+                                                           torch.float32,
+                                                           depth)
     step = build(layer_fn, loss_fn, cfg)
     p = step.prepare_params(layers)
     res["fp32_losses"], _ = pipeline_steps(torch, step, p,
@@ -2389,7 +2474,8 @@ def pipeline_rank_main(out_dir: str, role: str) -> int:
     del step, p, full
 
     cfg, layer_fn, loss_fn, layers, batch = pipeline_model(torch, dev,
-                                                           torch.bfloat16)
+                                                           torch.bfloat16,
+                                                           depth)
     step = build(layer_fn, loss_fn, cfg)
     p = step.prepare_params(layers)
     opt = adamw(p.parameters())
@@ -2454,11 +2540,15 @@ def phase_pipeline(torch, card: str) -> dict:
         _run_gloo_ranks(out_dir, 1, "single", "single", backend="NCCL")
         with open(os.path.join(out_dir, "single.json")) as f:
             single = json.load(f)
-        ref_params = torch.load(os.path.join(out_dir, "single_params.pt"))
+        ref_params = {d: torch.load(os.path.join(
+            out_dir, f"single_params_L{d}.pt")) for d in single
+            if d.isdigit()}
     single_s = time.perf_counter() - t0
     launches = {}
-    t1 = sorted(single["share_step_ms"][1:])[0]
     for role, (schedule, v) in PIPELINE_PHASES.items():
+        depth = pipeline_depth(role)
+        ref = single[str(depth)]
+        t1 = sorted(ref["share_step_ms"][1:])[0]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix=f"{role}_") as out_dir:
             _run_gloo_ranks(out_dir, 2, role, role)
@@ -2468,10 +2558,11 @@ def phase_pipeline(torch, card: str) -> dict:
                     res.append(json.load(f))
             params = torch.load(os.path.join(out_dir, "pipeline_params.pt"))
         world_s = time.perf_counter() - t0
-        ref32 = single["fp32_losses"]
+        ref32 = ref["fp32_losses"]
         traj = max(abs(a - b) / abs(b) for a, b in zip(res[0]["fp32_losses"],
                                                        ref32))
-        perr = {k: rel_l2(params[k], ref_params[k]) for k in ref_params}
+        perr = {k: rel_l2(params[k], ref_params[str(depth)][k])
+                for k in ref_params[str(depth)]}
         worst = max(perr, key=perr.get)
         rel1 = abs(res[0]["losses"][0] - ref32[0]) / abs(ref32[0])
         tpp = sorted(res[0]["step_ms"][1:])[0]
@@ -2481,13 +2572,14 @@ def phase_pipeline(torch, card: str) -> dict:
         last = 1        # the last stage's chunk is on pp position 1
         for rr in res:
             is_last = rr["pp_index"] == last
-            want = {"flash_attention_fwd": 2 * PIPELINE_MICRO
+            # a rank runs depth / pp layers a microbatch
+            want = {"flash_attention_fwd": depth // 2 * PIPELINE_MICRO
                     * PIPELINE_STEPS,
                     "xent_fwd": PIPELINE_MICRO * PIPELINE_STEPS
                     if is_last else 0}
             say(role, rank=rr["rank"], schedule=schedule, pp=2,
                 virtual_stages=v, microbatches=PIPELINE_MICRO,
-                width="V32000 M512 H8x64 L4 F2048 S256 B8 bf16 "
+                width=f"V32000 M512 H8x64 L{depth} F2048 S256 B8 bf16 "
                       f"(microbatch 2x256)",
                 losses=",".join(f"{x:.6f}" for x in rr["losses"]),
                 fp32_losses=",".join(f"{x:.6f}" for x in rr["fp32_losses"]),
@@ -2537,7 +2629,7 @@ def phase_pipeline(torch, card: str) -> dict:
             one_process_fp32_losses=",".join(f"{x:.6f}" for x in ref32),
             step_ms_best=tpp, pp1_share_step_ms_best=t1,
             one_process_pp1_full_batch_step_ms=",".join(
-                f"{x:.3f}" for x in single["bf16_step_ms"]),
+                f"{x:.3f}" for x in ref["bf16_step_ms"]),
             measured_bubble=measured, analytic_bubble=analytic, card=card)
         check(traj <= PIPELINE_FP32_TOL, f"{role}: fp32 losses "
               f"{res[0]['fp32_losses']} are {traj} off one process's {ref32}")
@@ -4754,18 +4846,23 @@ def phase_hvdrun(torch, cfg, init_sd, batch, train_losses) -> dict:
     del model, opt, step
     repeatable = again == train_losses
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo)
     launch = [sys.executable, "-m", "horovod_tpu_torch.runner.launch"]
-    with tempfile.TemporaryDirectory(prefix="hvdrun_") as out:
+    with tempfile.TemporaryDirectory(prefix="hvdrun_") as out, \
+            FakeMetadata(POD_ENDPOINTS) as metadata:
+        # the host comes from the metadata server, its one slot from the
+        # card count
+        env = dict(os.environ, PYTHONPATH=repo,
+                   HVD_TPU_METADATA_ENDPOINT=metadata.endpoint)
         t0 = time.perf_counter()
         r = subprocess.run(
-            launch + ["-np", "1", "-H", "localhost:1", sys.executable,
+            launch + ["--tpu", sys.executable,
                       os.path.join(repo, "tests",
                                    "torch_port_elastic_worker.py"),
                       "static", "--out", out, "--steps", str(TRAIN_STEPS)],
             cwd=repo, env=env, capture_output=True, text=True,
             timeout=HVDRUN_TIMEOUT_S)
         secs = time.perf_counter() - t0
+        served = metadata.served
         check(r.returncode == 0, f"hvdrun: the launch exited {r.returncode}"
                                  f":\n{r.stdout[-3000:]}{r.stderr[-3000:]}")
         with open(os.path.join(out, "static.rank0.json")) as f:
@@ -4779,7 +4876,8 @@ def phase_hvdrun(torch, cfg, init_sd, batch, train_losses) -> dict:
     n_layers = cfg.n_layers
     want = {"flash_attention_fwd": n_layers * TRAIN_STEPS,
             "xent_fwd": TRAIN_STEPS}
-    say("hvdrun", seconds=secs, rank=res["rank"], size=res["size"],
+    say("hvdrun", seconds=secs, hosts="--tpu", pod_endpoints=POD_ENDPOINTS,
+        metadata_reads=served, rank=res["rank"], size=res["size"],
         rendezvous=f"{res['rendezvous_addr']}:{res['rendezvous_port']}",
         generation=res["generation"], backend=res["backend"],
         losses=",".join(f"{x:.6f}" for x in losses),
@@ -4787,6 +4885,8 @@ def phase_hvdrun(torch, cfg, init_sd, batch, train_losses) -> dict:
         train_repeatable=repeatable, held_to=held, max_rel=rel,
         launches=",".join(f"{k}:{v}" for k, v in res["launches"].items()),
         failing_worker_rc=fail.returncode)
+    check(served.get("worker-network-endpoints", 0) >= 1,
+          f"hvdrun: --tpu never read the metadata server: {served}")
     check((res["rank"], res["size"], res["hvd_rank"], res["hvd_size"])
           == ("0", "1", 0, 1), f"hvdrun: identity {res}")
     check(res["rendezvous_addr"] == res["gloo_rendezvous_addr"]
@@ -4801,6 +4901,276 @@ def phase_hvdrun(torch, cfg, init_sd, batch, train_losses) -> dict:
     check(fail.returncode == 3,
           f"hvdrun: a worker's exit 3 came back as {fail.returncode}")
     return res["launches"]
+
+
+class FakeMetadata:
+    """A GCE metadata server on localhost for ``hvdrun --tpu``: serves
+    ``instance/attributes/worker-network-endpoints`` (only with the
+    ``Metadata-Flavor: Google`` header, as the real one) and counts the
+    reads of each attribute in ``served``."""
+
+    def __init__(self, endpoints: str):
+        import http.server
+        import threading
+        outer = self
+        self.served = {}
+        attrs = {"worker-network-endpoints": endpoints}
+        base = "/computeMetadata/v1/instance/attributes/"
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                name = self.path[len(base):] \
+                    if self.path.startswith(base) else None
+                if self.headers.get("Metadata-Flavor") != "Google" or \
+                        name not in attrs:
+                    self.send_error(403 if name in attrs else 404)
+                    return
+                outer.served[name] = outer.served.get(name, 0) + 1
+                body = attrs[name].encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self.endpoint = f"http://127.0.0.1:{self._server.server_address[1]}"
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def phase_nic_probe(card: str) -> str:
+    """[nic_probe]: two task services started as ``python -m
+    horovod_tpu_torch.runner.task_server --index i`` with the secret on
+    stdin (``probe_coordinator_address``'s remote half, without the
+    ``ssh``), probed through ``find_routable_interfaces``. Returns the
+    address ``pick_rendezvous_address`` picked."""
+    import secrets
+    import threading
+    import urllib.error
+
+    from horovod_tpu_torch.runner.service import (TaskClient,
+                                                  find_routable_interfaces,
+                                                  get_local_addresses,
+                                                  pick_rendezvous_address)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    secret = secrets.token_bytes(16)
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("HVD_TPU_SERVICE_SECRET", None)
+    t0 = time.perf_counter()
+    procs, clients = [], []
+    try:
+        for i in range(2):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "horovod_tpu_torch.runner.task_server",
+                 "--index", str(i), "--ttl", "120"], cwd=repo, env=env,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            procs.append(p)
+            p.stdin.write(secret.hex() + "\n")
+            p.stdin.flush()
+        for p in procs:
+            box = []
+            th = threading.Thread(target=lambda: box.append(
+                p.stdout.readline()), daemon=True)
+            th.start()
+            th.join(NIC_PROBE_TIMEOUT_S)
+            line = box[0] if box else ""
+            check(line.startswith("HVD_TASK_PORT="),
+                  f"nic_probe: a task server printed {line!r}")
+            clients.append(TaskClient("127.0.0.1",
+                                      int(line.strip().split("=")[1]),
+                                      secret))
+        local = get_local_addresses()
+        tables = [c.addresses() for c in clients]
+        probes = [clients[i].probe("127.0.0.1", clients[1 - i].port)
+                  for i in range(2)]
+        evil = TaskClient("127.0.0.1", clients[0].port, b"x" * 16)
+        try:
+            evil.addresses()
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        routable = find_routable_interfaces(clients)
+        pick = pick_rendezvous_address(routable)
+        secs = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            c.shutdown()
+        for p in procs:
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    others = sorted(ip for ip in local.values() if not ip.startswith("127."))
+    say("nic_probe", services=2, interfaces=json.dumps(local).replace(
+        " ", ""), routable=json.dumps(routable).replace(" ", ""), pick=pick,
+        probes=probes, wrong_secret_http=refused, seconds=secs, card=card,
+        exit_codes=[p.returncode for p in procs])
+    check(all(t == local for t in tables),
+          f"nic_probe: the services' interfaces {tables} are not {local}")
+    check(probes == [True, True], f"nic_probe: probes {probes}")
+    check(refused == 403, f"nic_probe: a wrong secret got {refused}")
+    check(pick in local.values(), f"nic_probe: {pick} is not local {local}")
+    check(not others or not pick.startswith("127."),
+          f"nic_probe: picked loopback {pick} though {others} exist")
+    check([p.returncode for p in procs] == [0, 0],
+          "nic_probe: a task server did not exit 0 on shutdown")
+    return pick
+
+
+def phase_agent_elastic(torch, cfg, card: str, host: str) -> dict:
+    """[agent_elastic]: ``run_agent_elastic`` over three host agents that
+    ``start_local_agents`` starts as processes of this host, registered
+    under ``host`` (the NIC probe's pick, where the world rendezvouses);
+    the payload is the elastic trainer of the flagship at full width and
+    depth on ``cuda:0``. After its commit of step ELASTIC_KILL[1], rank
+    ELASTIC_KILL[0] SIGKILLs its process group: its agent dies with it,
+    the heartbeat expires, the world shrinks to two, the respawned agent
+    registers and the world grows back to three. Returns each final
+    rank's launches."""
+    import threading
+
+    import torch_port_elastic_worker as worker
+
+    from horovod_tpu_torch.models import Transformer, adamw, make_train_step
+    from horovod_tpu_torch.runner.elastic import agent
+    kill_rank, kill_step = ELASTIC_KILL
+    with tempfile.TemporaryDirectory(prefix="agent_") as out:
+        argv = ["--out", out, "--device", "cuda:0", "--steps", ELASTIC_STEPS,
+                "--rows", ELASTIC_ROWS, "--kill-group",
+                f"{kill_rank}:{kill_step}", "--save-commit", kill_step,
+                "--until-size", 3]
+
+        def shrunk() -> bool:
+            return os.path.exists(os.path.join(out, "events.jsonl")) and \
+                any(e["kind"] == "step" and e["size"] == 2
+                    for e in worker.events(out))
+
+        stats, box = {}, {}
+
+        def run():
+            try:
+                box["results"] = agent.run_agent_elastic(
+                    lambda ctx: worker.start_local_agents(
+                        ctx, 3, host=host, hold=lambda: not shrunk(),
+                        stats=stats),
+                    worker.agent_payload, args=(argv,), num_proc=3,
+                    min_np=2, max_np=3, reset_limit=3,
+                    env={"HOROVOD_TPU_OPERATIONS": "GLOO",
+                         "OMP_NUM_THREADS": "1",
+                         "HVD_TPU_GLOO_TIMEOUT_SECONDS":
+                         str(ELASTIC_GLOO_TIMEOUT_S),
+                         "HVD_ELASTIC_SHRINK_WAIT_S": "60"})
+            except Exception as e:   # raised again below, on this thread
+                box["error"] = e
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        th.join(AGENT_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        if th.is_alive():
+            for pgid in stats.get("pgids", []):
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(pgid, signal.SIGKILL)
+            th.join(30)
+        evs = worker.events(out)
+        check(not th.is_alive() and "error" not in box,
+              f"agent_elastic: the run {box.get('error', 'timed out')}: "
+              f"{_evsum(evs)}")
+        results = box["results"]
+        snap = torch.load(os.path.join(out, "commit.pt"),
+                          map_location="cuda:0", weights_only=False)
+        healed_grads = torch.load(os.path.join(out, "grads_healed.rank0.pt"))
+    boots = [e for e in evs if e["kind"] == "boot"]
+    kill = [e for e in evs if e["kind"] == "kill"]
+    steps = [e for e in evs if e["kind"] == "step"]
+    check(len(kill) == 1 and kill[0]["rank"] == kill_rank
+          and kill[0].get("group"), f"agent_elastic: kills {kill}")
+    first = {b["rank"]: b["pid"] for b in boots[:3]}
+    check(len(boots) == 4 and sorted(first) == [0, 1, 2]
+          and boots[3]["rank"] == kill_rank,
+          f"agent_elastic: boots {_evsum(evs)}")
+    check([r["rank"] for r in results] == [0, 1, 2]
+          and all(r["size"] == 3 for r in results),
+          f"agent_elastic: results {[(r['rank'], r['size']) for r in results]}")
+    survivors = [r for r in range(3) if r != kill_rank]
+    check(all(results[r]["pid"] == first[r] for r in survivors)
+          and results[kill_rank]["pid"] == boots[3]["pid"],
+          "agent_elastic: a survivor was restarted, or the grown rank is "
+          "not the new process")
+    digests = {r["digest"] for r in results}
+    check(len(digests) == 1, f"agent_elastic: replicas differ {digests}")
+    healed = [e for e in steps if e["step"] == kill_step + 1]
+    check(len(healed) == 2 and all(e["size"] == 2 for e in healed)
+          and len({e["loss"] for e in healed}) == 1,
+          f"agent_elastic: first healed step {healed}")
+    rows = healed[0]["rows"]
+    n = 3 * ELASTIC_ROWS * ELASTIC_STEPS * 4
+    tokens, targets = worker.corpus(cfg, n)
+    dev = torch.device("cuda", 0)
+    model = Transformer(cfg)
+    model.load_state_dict(snap["torch_snaps"]["model"])
+    opt = adamw(model.parameters())
+    opt.load_state_dict(snap["torch_snaps"]["optimizer"])
+    ref_loss = float(make_train_step(cfg)(
+        model, opt, torch.from_numpy(tokens[rows]).to(dev),
+        torch.from_numpy(targets[rows]).to(dev))[2])
+    ref_grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+    del model, opt, snap
+    errs = grad_errors(healed_grads, ref_grads)
+    worst = max(errs, key=lambda k: errs[k][0])
+    loss_rel = abs(healed[0]["loss"] - ref_loss) / abs(ref_loss)
+    t_kill = kill[0]["t"]
+    grown = [e for e in steps if e["size"] == 3 and e["step"] > kill_step]
+    shrink = {r: ep for r in survivors for ep in
+              results[r]["chaos"]["episodes"]
+              if ep["trigger"] == "internal_error"}
+    grow = {r: ep for r in survivors for ep in
+            results[r]["chaos"]["episodes"]
+            if ep["trigger"] == "hosts_updated"}
+    launches = {r["rank"]: r["launches"] for r in results}
+    say("agent_elastic", seconds=secs, card=card, host=host, world=3,
+        kill=f"rank {kill_rank} and its agent after step {kill_step}",
+        heartbeat_expiry_s=stats["stale_at"] - t_kill, stale_s=agent.STALE_S,
+        kill_to_first_healed_step_s=min(e["t"] for e in healed) - t_kill,
+        **{f"rank{r}_shrink_{ph}_s": ep.get(f"{ph}_s")
+           for r, ep in shrink.items() for ph in REMESH_PHASES},
+        respawn_after_kill_s=stats["respawned_at"] - t_kill,
+        kill_to_first_grown_step_s=(min(e["t"] for e in grown) - t_kill
+                                    if grown else None),
+        **{f"rank{r}_grow_{ph}_s": ep.get(f"{ph}_s")
+           for r, ep in grow.items() for ph in REMESH_PHASES},
+        healed_loss=healed[0]["loss"], one_process_loss=ref_loss,
+        loss_rel=loss_rel, tol_loss=DP_LOSS_TOL, worst_grad=worst,
+        grad_rel_l2=errs[worst][0], tol_grad=DP_GRAD_TOL,
+        sizes=",".join(f"{e['step']}:{e['size']}" for e in steps
+                       if e["rank"] == 0),
+        launches=";".join(f"{r}:{v['flash_attention_fwd']},"
+                          f"{v['xent_fwd']}" for r, v in launches.items()))
+    check(sorted(shrink) == survivors and sorted(grow) == survivors,
+          f"agent_elastic: re-mesh episodes {shrink} {grow}")
+    check(loss_rel <= DP_LOSS_TOL, f"agent_elastic: healed loss "
+                                   f"{healed[0]['loss']} vs {ref_loss}")
+    check(errs[worst][0] <= DP_GRAD_TOL, f"agent_elastic: gradient of "
+                                         f"{worst} {errs[worst][0]} off")
+    for r, got in launches.items():
+        check(got["flash_attention_fwd"] > 0 and got["xent_fwd"] > 0,
+              f"agent_elastic: a kernel did not run on rank {r}: {got}")
+    return launches
 
 
 def phase_elastic_recover(torch, cfg, card: str) -> dict:
@@ -6313,8 +6683,11 @@ def main() -> int:
     # -- tensor, sequence and expert parallelism: 4-rank gloo worlds on the
     # card at full width ([ulysses] runs in the [tp_sp] world)
     card = smi.replace(", ", "/").replace(" ", "_")
-    layout_launches = {role: phase_layout(torch, role, card, dev)
-                       for role in LAYOUT_PHASES}
+    # the three worlds side by side (their checks are of the sharding; the
+    # step times of gloo ranks sharing one card price no layout)
+    layout_launches = dict(zip(LAYOUT_PHASES, _concurrently(*(
+        lambda role=role: phase_layout(torch, role, card, dev)
+        for role in LAYOUT_PHASES))))
     for k in kernels:
         k["layout_launches"] = {role: [got.get(k["name"], 0) for got in ranks]
                                 for role, ranks in layout_launches.items()}
@@ -6358,8 +6731,9 @@ def main() -> int:
     # BERT-Large at full width on the card; ResNet-50 over two gloo ranks
     # with the global batch's BN statistics; BERT over tp
     phase_zoo(torch, dev, card)
-    phase_zoo_dp(torch, dev, card)
-    phase_bert_tp(torch, dev, card)
+    # the two gloo worlds side by side (their checks are numerical)
+    _concurrently(lambda: phase_zoo_dp(torch, dev, card),
+                  lambda: phase_bert_tp(torch, dev, card))
 
     # -- the serving plane: the flagship decoded by the continuous engine
     # (one CUDA graph capture per step function), a replica behind the
@@ -6400,8 +6774,13 @@ def main() -> int:
         c.launches = 0
     obs_launches = {"obs_exporter": phase_obs_exporter(
         torch, model.cfg, init_sd, (tokens, targets), counters)}
-    obs_launches["obs_fleet_4rank"] = phase_obs_fleet(torch, card)
-    obs_launches["obs_hang_autopsy"] = phase_obs_hang(torch, card)
+    # the fleet tree and the hang, two independent worlds side by side,
+    # and beside them the agent transport's NIC probe (its pick is where
+    # [agent_elastic]'s worlds rendezvous, below)
+    obs_launches["obs_fleet_4rank"], obs_launches["obs_hang_autopsy"], \
+        pick = _concurrently(lambda: phase_obs_fleet(torch, card),
+                             lambda: phase_obs_hang(torch, card),
+                             lambda: phase_nic_probe(card))
     for k in kernels:
         k["obs_launches"] = {ph: got.get(k["name"], 0)
                              for ph, got in obs_launches.items()}
@@ -6413,15 +6792,22 @@ def main() -> int:
           f"quantize or dequantize did not run in [obs_hang_autopsy]: "
           f"{obs_launches['obs_hang_autopsy']}")
 
-    # -- the launcher and elastic training: hvdrun's NCCL world of one, and
-    # three gloo ranks that lose one and heal in place
-    hvdrun_launches = phase_hvdrun(torch, model.cfg, init_sd,
-                                   (tokens, targets), losses)
-    elastic_launches = phase_elastic_recover(torch, model.cfg, card)
+    # -- the launcher and elastic training, side by side (independent
+    # worlds on the card): hvdrun's NCCL world of one; three gloo ranks
+    # that lose one and heal in place; and the agent transport: three
+    # ranks that host agents run, rendezvousing at the NIC probe's pick,
+    # losing an agent with its worker and growing back
+    hvdrun_launches, elastic_launches, agent_launches = _concurrently(
+        lambda: phase_hvdrun(torch, model.cfg, init_sd, (tokens, targets),
+                             losses),
+        lambda: phase_elastic_recover(torch, model.cfg, card),
+        lambda: phase_agent_elastic(torch, model.cfg, card, pick))
     for k in kernels:
         k["hvdrun_launches"] = hvdrun_launches.get(k["name"], 0)
         k["elastic_launches"] = {r: got.get(k["name"], 0)
                                  for r, got in elastic_launches.items()}
+        k["agent_launches"] = {r: got.get(k["name"], 0)
+                               for r, got in agent_launches.items()}
 
     # -- the eager collectives and the horovod.torch adapter: the reference
     # idiom in an NCCL world of one (and the NCCL eager plane there), then
@@ -6484,7 +6870,7 @@ def main() -> int:
             "dp_launches", "telemetry_launches", "layout_launches",
             "pp_launches", "ckpt_launches", "serve_launches",
             "obs_launches", "hvdrun_launches", "elastic_launches",
-            "eager_launches", "chaos_launches")
+            "agent_launches", "eager_launches", "chaos_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

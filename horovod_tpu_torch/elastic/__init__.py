@@ -328,8 +328,22 @@ class State:
     def check_host_updates(self) -> None:
         """Raise :class:`HostsUpdatedInterrupt` when the driver published
         a newer world (elastic growth without restarting survivors);
-        failures/shrink still arrive as process restarts."""
+        failures/shrink still arrive as process restarts.
+
+        Every rank of the world raises at the same commit, with the
+        newest document any of them holds (reference: the broadcast in
+        ``common/elastic.py`` ``check_host_updates``; its TODO's max over
+        the ranks). The JAX package checks each rank alone: a rank that
+        sees the document first leaves for the new world while a peer
+        that has not seen it yet enters its next step's collective,
+        fails it, and reaches the same world through a recovery."""
         update = _world_update()
+        import horovod_tpu_torch as hvd
+        if hvd.is_initialized() and hvd.size() > 1:
+            from horovod_tpu_torch.train.optimizer import allgather_object
+            docs = [d for d in allgather_object(update) if d is not None]
+            update = max(docs, key=lambda d: int(d["generation"])) \
+                if docs else None
         if update is not None:
             raise HostsUpdatedInterrupt(update)
 

@@ -591,7 +591,16 @@ class ElasticDriver:
         for k in survivors:
             h = slot_by_key[k].hostname
             surv_on[h] = surv_on.get(h, 0) + 1
-        # replacements go onto free capacity of healthy discovered hosts
+        # replacements go onto free capacity of healthy discovered hosts,
+        # as discovery sees them now: the loss being recovered can be
+        # newer than the discovery thread's last view (an agent whose
+        # heartbeat just went stale), and a replacement planned onto its
+        # slot would fail at once
+        try:
+            if self._hosts.update_available_hosts():
+                self._hosts_changed.set()
+        except Exception as e:  # discovery hiccup: plan on the last view
+            get_logger().warning("host discovery failed: %s", e)
         hosts_now = self._hosts.current_hosts()
         placement: List[str] = []
         n_repl = max(0, target_np - len(survivors))

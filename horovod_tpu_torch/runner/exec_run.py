@@ -15,11 +15,19 @@ Two differences from the JAX module:
   ``SO_REUSEADDR`` and not listening: rank 0's store (``SO_REUSEADDR``
   too) can still bind and listen on it, while the kernel gives it to no
   other ``bind(0)``. The launcher holds it until its world ends.
-* **No multi-host NIC probe.** The JAX launcher resolves a rendezvous
-  address every host can reach through its task services
-  (``probe_coordinator_address``); those services are the agent
-  transport, not ported yet (ROADMAP queue 1 item 7), so a multi-host
-  launch rendezvouses at rank 0's hostname.
+* **The exit code is the first failure's.** The JAX ``launch_static``
+  returns the first non-zero code in rank order, so a rank that the
+  launcher terminated because another rank failed can hand back its
+  -15 (241 from ``hvdrun``) instead of the failing rank's code (ROADMAP
+  queue 3 item 20). Here the code of the rank that failed first, by
+  time, is returned: a rank the launcher terminates fails only after
+  that first failure has been recorded.
+
+A multi-host launch first resolves a rendezvous address every host can
+reach (:func:`probe_coordinator_address`): a task service
+(:mod:`horovod_tpu_torch.runner.task_server`) on every distinct host,
+started locally or over ``ssh``, probes the others' interfaces. The probe
+is best-effort: a failed probe falls back to rank 0's hostname.
 """
 
 from __future__ import annotations
@@ -94,19 +102,118 @@ def slot_command(slot: SlotInfo, command: List[str], coord_addr: str,
     return SSH_COMMAND_PREFIX + [slot.hostname, remote], dict(os.environ)
 
 
+def probe_coordinator_address(hostnames: List[str],
+                              restrict: Optional[List[str]] = None,
+                              verbose: bool = False) -> Optional[str]:
+    """Multi-NIC bootstrap (reference: ``get_common_interfaces``,
+    ``driver/driver_service.py:49-235``): start a task service on every
+    distinct host, ring-probe candidate interfaces, return a rendezvous
+    address every worker can reach. None = all-local, no probing needed."""
+    import secrets as _secrets
+    import subprocess
+
+    distinct: List[str] = []
+    for h in hostnames:
+        if h not in distinct:
+            distinct.append(h)
+    if all(_is_local(h) for h in distinct):
+        return None
+
+    from horovod_tpu_torch.runner.service import (
+        TaskClient, TaskService, find_routable_interfaces,
+        pick_rendezvous_address)
+    secret = _secrets.token_bytes(16)
+    services: List[TaskService] = []
+    procs: List[subprocess.Popen] = []
+    clients_by_idx: Dict[int, TaskClient] = {}
+    try:
+        # spawn everything first (concurrent ssh session setup), collect
+        # ports in parallel with a read deadline — a wedged remote must
+        # not hang the launch (probing is best-effort bootstrap)
+        pending: List[Tuple[int, str, subprocess.Popen]] = []
+        for i, host in enumerate(distinct):
+            if _is_local(host):
+                svc = TaskService(i, secret).start()
+                services.append(svc)
+                clients_by_idx[i] = TaskClient("127.0.0.1", svc.port,
+                                               secret)
+                continue
+            remote = (f"{shlex.quote(sys.executable)} -m "
+                      f"horovod_tpu_torch.runner.task_server --index {i}")
+            proc = subprocess.Popen(
+                SSH_COMMAND_PREFIX + ["-o", "ConnectTimeout=15", host,
+                                      remote],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            # the secret travels over the ssh channel (stdin), never on a
+            # command line where the remote process table would expose it
+            proc.stdin.write(secret.hex() + "\n")
+            proc.stdin.flush()
+            procs.append(proc)
+            pending.append((i, host, proc))
+
+        def read_port(i: int, host: str, proc: subprocess.Popen) -> None:
+            line = proc.stdout.readline()
+            if line.startswith("HVD_TASK_PORT="):
+                clients_by_idx[i] = TaskClient(
+                    host, int(line.strip().split("=", 1)[1]), secret)
+
+        readers = [threading.Thread(target=read_port, args=p, daemon=True)
+                   for p in pending]
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join(timeout=30)
+        missing = [h for i, h, _ in pending if i not in clients_by_idx]
+        if missing:
+            raise RuntimeError(
+                f"task services failed to start on: {missing}")
+        clients = [clients_by_idx[i] for i in range(len(distinct))]
+        routable = find_routable_interfaces(clients, restrict=restrict)
+        addr = pick_rendezvous_address(routable)
+        if verbose:
+            print(f"[hvdrun] NIC probe: rendezvous via {addr} "
+                  f"(routable: {routable})", flush=True)
+        return addr
+    finally:
+        for c in clients_by_idx.values():
+            c.shutdown()
+        for svc in services:
+            svc.stop()
+        for proc in procs:
+            try:
+                proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                proc.terminate()
+
+
 def launch_static(hosts: List[HostInfo], np: int, command: List[str],
                   env: Optional[Dict[str, str]] = None,
                   coord_addr: Optional[str] = None,
                   coord_port: Optional[int] = None,
+                  nics: Optional[List[str]] = None,
+                  nic_probe: bool = True,
                   verbose: bool = False,
                   output_dir: Optional[str] = None,
                   timestamp_output: bool = False) -> int:
-    """Run ``command`` on every slot; return first nonzero exit code (or 0).
+    """Run ``command`` on every slot; return the exit code of the rank
+    that failed first (or 0).
 
     Reference: ``launch_gloo`` (``gloo_run.py:226``): assignment → env →
-    per-slot exec threads; any failure terminates the rest.
+    per-slot exec threads; any failure terminates the rest. Multi-host
+    launches first resolve a mutually-routable rendezvous address through
+    the task-service NIC probe (``probe_coordinator_address``), unless
+    ``nic_probe`` is false; ``nics`` restricts it to those interfaces.
     """
     slots = get_host_assignments(hosts, np)
+    if coord_addr is None and nic_probe and \
+            not all(_is_local(s.hostname) for s in slots):
+        try:
+            coord_addr = probe_coordinator_address(
+                [s.hostname for s in slots], restrict=nics,
+                verbose=verbose)
+        except Exception as e:  # probing is best-effort bootstrap
+            print(f"[hvdrun] NIC probe failed ({e}); falling back to "
+                  f"hostname resolution", file=sys.stderr, flush=True)
     coord_addr = coord_addr or (
         "127.0.0.1" if _is_local(slots[0].hostname) else slots[0].hostname)
     held = None
@@ -114,10 +221,11 @@ def launch_static(hosts: List[HostInfo], np: int, command: List[str],
         held = reserve_port()
         coord_port = held.getsockname()[1]
 
-    results: List[Optional[int]] = [None] * np
     failure = threading.Event()
+    first: List[int] = []    # the first failure's code, by time
+    lock = threading.Lock()
 
-    def run_slot(idx: int, slot: SlotInfo) -> None:
+    def run_slot(slot: SlotInfo) -> None:
         rc = 1  # anything that dies before safe_execute is a failure
         out_f = err_f = None
         try:
@@ -142,12 +250,16 @@ def launch_static(hosts: List[HostInfo], np: int, command: List[str],
             for f in (out_f, err_f):
                 if f:
                     f.close()
-            results[idx] = rc
             if rc != 0:
+                # recorded before the event is set: a rank terminated
+                # because of this failure can only fail after it
+                with lock:
+                    if not first:
+                        first.append(rc)
                 failure.set()
 
-    threads = [threading.Thread(target=run_slot, args=(i, s), daemon=True)
-               for i, s in enumerate(slots)]
+    threads = [threading.Thread(target=run_slot, args=(s,), daemon=True)
+               for s in slots]
     try:
         for t in threads:
             t.start()
@@ -156,7 +268,4 @@ def launch_static(hosts: List[HostInfo], np: int, command: List[str],
     finally:
         if held is not None:
             held.close()
-    for rc in results:
-        if rc:
-            return rc
-    return 0
+    return first[0] if first else 0

@@ -10,11 +10,16 @@ the other. In the port a worker process drives one card
 (``cuda:<local_rank>``), and rank 0's ``torch.distributed`` store is the
 rendezvous.
 
-What the port does not have yet (ROADMAP queue 1 item 7): ``--tpu``
-(GCE metadata discovery of a TPU pod slice) refuses, until GPU host
-discovery lands; the multi-host NIC probe (``--network-interfaces``,
-``--no-nic-probe``) rides the agent transport and is absent. The config
-file needs PyYAML, imported only when ``--config-file`` is given.
+``--tpu`` enumerates the hosts from the cloud VM's metadata server
+(:func:`~horovod_tpu_torch.runner.gpu_discovery.pod_hosts`; with
+``--min-np``, elastic discovery re-reads it each refresh): a TPU VM's
+``worker-network-endpoints``, or the same attribute set on a GPU VM's
+instance template. A host's slots are this host's card count unless
+``--slots`` or ``-np`` says otherwise. A multi-host static launch resolves
+its rendezvous address through the task services' NIC probe
+(``--network-interfaces``/``--nics`` restricts it, ``--no-nic-probe``
+skips it). The config file needs PyYAML, imported only when
+``--config-file`` is given.
 """
 
 from __future__ import annotations
@@ -45,9 +50,12 @@ def parse_args(argv: List[str]) -> argparse.Namespace:
     p.add_argument("--hostfile", default=None,
                    help="hostfile with lines 'host slots=N'")
     p.add_argument("--tpu", action="store_true",
-                   help="TPU pod-slice discovery of the JAX launcher; "
-                        "refused here until GPU host discovery lands "
-                        "(ROADMAP queue 1 item 7)")
+                   help="enumerate the pod's worker VMs from the GCE "
+                        "metadata service instead of -H/--hostfile (the "
+                        "TPU analog of the reference's MPI/LSF environment "
+                        "detection; a GPU VM's instance template sets the "
+                        "same attribute); with --min-np, elastic discovery "
+                        "re-reads it each refresh")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--config-file", default=None,
                    help="YAML file with the reference's config schema "
@@ -118,6 +126,13 @@ def parse_args(argv: List[str]) -> argparse.Namespace:
                    help=argparse.SUPPRESS)
     p.add_argument("--gloo-timeout-seconds", type=float, default=None,
                    help="rendezvous/mesh connect deadline")
+    p.add_argument("--network-interfaces", "--nics", dest="nics",
+                   default=None,
+                   help="comma-separated NIC allowlist for the multi-host "
+                        "routability probe (reference: --network-interfaces)")
+    p.add_argument("--no-nic-probe", action="store_true",
+                   help="skip the task-service NIC probe on multi-host "
+                        "launches")
     p.add_argument("--thread-affinity", type=int, default=None,
                    help="pin the core background thread to this CPU")
     p.add_argument("--output-filename", default=None,
@@ -348,21 +363,15 @@ def resolve_hosts(args: argparse.Namespace) -> List[HostInfo]:
         raise ValueError(
             "Specify only one of --hosts, --hostfile, --tpu")
     if getattr(args, "tpu", False):
-        _refuse_tpu()
+        from horovod_tpu_torch.runner.gpu_discovery import pod_hosts
+        return pod_hosts(slots=getattr(args, "slots_per_host", None),
+                         num_proc=args.num_proc)
     if args.hostfile:
         return parse_hostfile(args.hostfile)
     if args.hosts:
         return parse_hosts(args.hosts)
     np = args.num_proc or 1
     return [HostInfo("localhost", np)]
-
-
-def _refuse_tpu() -> None:
-    raise SystemExit(
-        "hvdrun: --tpu reads a TPU pod slice from the GCE metadata "
-        "service; the PyTorch port has no GPU host discovery in its place "
-        "yet (ROADMAP queue 1 item 7, remainder 2). Use -H/--hosts, "
-        "--hostfile or --host-discovery-script.")
 
 
 def check_build() -> str:
@@ -473,7 +482,9 @@ def run_commandline(argv: List[str] = None) -> int:
                 default_slots=1 if args.slots_per_host is None
                 else args.slots_per_host)
         elif args.tpu:
-            _refuse_tpu()
+            from horovod_tpu_torch.runner.gpu_discovery import PodDiscovery
+            discovery = PodDiscovery(slots=args.slots_per_host,
+                                     num_proc=args.max_np or args.num_proc)
         else:
             discovery = FixedHosts(resolve_hosts(args))
         journal_dir = args.driver_journal_dir or \
@@ -506,7 +517,10 @@ def run_commandline(argv: List[str] = None) -> int:
                        str(args.start_timeout))
     hosts = resolve_hosts(args)
     np = args.num_proc or sum(h.slots for h in hosts)
+    nics = [n.strip() for n in args.nics.split(",") if n.strip()] \
+        if args.nics else None
     return launch_static(hosts, np, args.command, env=env,
+                         nics=nics, nic_probe=not args.no_nic_probe,
                          verbose=args.verbose,
                          output_dir=args.output_filename,
                          timestamp_output=args.prefix_output_with_timestamp)

@@ -30,15 +30,19 @@ def _port_sources():
 
 
 def test_importing_every_module_loads_no_jax():
+    """The walk imports spark and ray too: neither needs pyspark, ray or
+    keras to import (none is installed here)."""
     code = (
         "import pkgutil, importlib, sys, horovod_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'flax', 'ml_dtypes', 'horovod_tpu'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 8 else 0)\n")
+        "('jax', 'jaxlib', 'optax', 'flax', 'ml_dtypes', 'horovod_tpu', "
+        "'pyspark', 'ray', 'keras', 'tensorflow'))\n"
+        "need = {'horovod_tpu_torch.spark', 'horovod_tpu_torch.ray'}\n"
+        "print(len(mods), bad, need - set(mods))\n"
+        "sys.exit(1 if bad or len(mods) < 8 or need - set(mods) else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
@@ -66,7 +70,13 @@ CONTROL_PLANE = ("common.retry", "runner.hosts", "runner.safe_exec",
                  "runner.gpu_discovery", "autopilot.__init__",
                  "autopilot.policy", "autopilot.engine", "autopilot.actions",
                  "serving.rollout.__init__", "serving.rollout.comparator",
-                 "serving.rollout.controller")
+                 "serving.rollout.controller",
+                 # the agent transport, the NIC probe, Spark and Ray
+                 "common.payload", "runner.service", "runner.task_server",
+                 "runner.elastic.agent", "runner.elastic.agent_worker",
+                 "spark.__init__", "spark.store", "spark.estimator",
+                 "spark.torch_estimator", "spark.torch", "spark.elastic",
+                 "ray.__init__")
 
 
 def _covered(modules):
@@ -87,8 +97,9 @@ def test_observability_modules_are_covered():
 
 
 def test_control_plane_modules_are_covered():
-    """So is every module of the launcher and elastic slice, and of the
-    chaos, preemption, autopilot and rollout slice."""
+    """So is every module of the launcher and elastic slice, of the
+    chaos, preemption, autopilot and rollout slice, and of the agent
+    transport, NIC probe, Spark and Ray slice."""
     _covered(CONTROL_PLANE)
 
 

@@ -67,6 +67,20 @@ def test_hvdrun_propagates_a_failing_workers_exit_code(tmp_path):
     assert r.returncode == 3, r.stderr[-2000:]
 
 
+def test_hvdrun_returns_the_first_failure_not_a_terminated_ranks_code():
+    """Rank 1 exits 3 at once while rank 0 sleeps, so the launcher
+    terminates rank 0 (-15): ``hvdrun`` returns 3, the first failure by
+    time, in every repeat (a rank-order scan returns rank 0's -15)."""
+    from horovod_tpu_torch.runner import launch
+    worker = ("import os, sys, time\n"
+              "if os.environ['HOROVOD_RANK'] == '1':\n"
+              "    sys.exit(3)\n"
+              "time.sleep(60)\n")
+    rcs = [launch.run_commandline(["-np", "2", sys.executable, "-c", worker])
+           for _ in range(20)]
+    assert rcs == [3] * 20
+
+
 def test_hvdrun_output_filename(tmp_path):
     out_dir = tmp_path / "logs"
     r = _hvdrun("-np", "2", "--output-filename", str(out_dir),

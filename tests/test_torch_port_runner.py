@@ -95,14 +95,12 @@ FULL_KNOBS = [
     ["--start-timeout", "45", "--gloo-timeout-seconds", "60", "python",
      "t.py"]])
 def test_parse_args_and_knobs_to_env_match(argv):
-    """The same namespace and environment, less the JAX launcher's two
-    NIC-probe flags (the agent transport is not ported)."""
+    """The same namespace (the NIC-probe flags included) and
+    environment."""
     got = []
     for m in (jx_launch, pt_launch):
         args = m.parse_args(list(argv))
-        ns = {k: v for k, v in vars(args).items()
-              if k not in ("nics", "no_nic_probe")}
-        got.append((ns, m.knobs_to_env(args),
+        got.append((vars(args), m.knobs_to_env(args),
                     [(h.hostname, h.slots) for h in m.resolve_hosts(args)]
                     if not args.host_discovery_script else None))
     assert got[0] == got[1]
@@ -153,14 +151,21 @@ def test_config_file_env_matches(tmp_path):
             m.parse_args(["--config-file", str(bad), "python", "t.py"])
 
 
-def test_check_build_and_tpu_refusal(capsys):
+def test_check_build_and_tpu_refusal(capsys, monkeypatch):
+    """check_build names the port's framework and backends. ``--tpu`` no
+    longer refuses: off a metadata server it fails with the discovery's
+    ``OSError`` (tests/test_torch_port_pod_discovery.py drives it against
+    one), and the NIC-probe flags parse as the JAX launcher's."""
     report = pt_launch.check_build()
     assert "PyTorch" in report and "Gloo" in report and "JAX" not in report
     assert pt_launch.run_commandline(["--check-build"]) == 0
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 7"):
+    monkeypatch.setenv("HVD_TPU_METADATA_ENDPOINT", "http://127.0.0.1:1")
+    with pytest.raises(OSError, match="worker-network-endpoints"):
         pt_launch.run_commandline(["--tpu", "python", "t.py"])
-    with pytest.raises(SystemExit):
-        pt_launch.parse_args(["--nics", "eth0", "python", "t.py"])
+    argv = ["--nics", "eth0, eth1", "--no-nic-probe", "python", "t.py"]
+    args = pt_launch.parse_args(argv)
+    assert (args.nics, args.no_nic_probe) == ("eth0, eth1", True)
+    assert vars(args) == vars(jx_launch.parse_args(argv))
 
 
 # -- discovery and the registry ------------------------------------------------

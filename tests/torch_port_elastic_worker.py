@@ -24,9 +24,17 @@ left. Every event is a JSON line of ``DIR/events.jsonl`` (``boot``,
 saves the state of the commit at ``--save-commit`` steps
 (``commit.pt``), and the first step after a re-mesh saves its synced
 gradients (``grads_healed.rank<r>.pt``). ``--kill RANK:STEP`` makes that
-rank ``os._exit(1)`` right after its commit of STEP, once;
-``--marker-at STEP:NAME`` makes rank 0 create ``DIR/NAME`` after that
+rank ``os._exit(1)`` right after its commit of STEP, once, and
+``--kill-group RANK:STEP`` SIGKILLs the rank's process group there (a host
+agent and its worker die together); ``--marker-at STEP:NAME`` makes rank 0 create ``DIR/NAME`` after that
 commit (the discovery scripts of the growth and shrink tests read it).
+
+Under the agent transport (``run_agent_elastic``), :func:`agent_payload`
+is the payload (a module-level function, which ``pickle`` carries
+without ``cloudpickle``): the elastic trainer, returning the rank's
+``done`` record. :func:`start_local_agents` starts the host agents as
+processes of this host, each in its own process group, and respawns a
+lost one.
 
 Under a fault plan (``HVD_TPU_FAULT_PLAN``) each step begins with the
 chaos ``step`` seam at the committed step count (a ``tick`` event comes
@@ -55,6 +63,7 @@ re-mesh episodes.
 import argparse
 import json
 import os
+import signal
 import sys
 import time
 
@@ -84,6 +93,9 @@ def _args(argv):
                          "--steps at 3 ranks, or 4x that for a run that "
                          "may step on)")
     ap.add_argument("--kill", default="", help="RANK:STEP")
+    ap.add_argument("--kill-group", default="",
+                    help="RANK:STEP, SIGKILL to the rank's process group "
+                         "(its host agent with it)")
     ap.add_argument("--marker-at", default="", help="STEP:NAME")
     ap.add_argument("--save-commit", type=int, default=-1)
     ap.add_argument("--sleep", type=float, default=0.0,
@@ -282,6 +294,8 @@ def elastic_main(args) -> int:
     opt = init_opt_state(adamw, model)
     state = TorchState(model, opt, sampler=sampler, step=0)
     kill = tuple(map(int, args.kill.split(":"))) if args.kill else None
+    kill_group = tuple(map(int, args.kill_group.split(":"))) \
+        if args.kill_group else None
     marker = args.marker_at.split(":", 1) if args.marker_at else None
     healed = {"pending": False}
 
@@ -410,10 +424,11 @@ def elastic_main(args) -> int:
                 timer.end_step(args.rows)
             if healed["pending"]:
                 healed["pending"] = False
-                torch.save({k: p.grad.detach().cpu()
-                            for k, p in model.named_parameters()},
-                           os.path.join(out, f"grads_healed.rank"
-                                        f"{hvd.rank()}.pt"))
+                # the first re-mesh's: a later one (a growth) keeps it
+                path = os.path.join(out, f"grads_healed.rank{hvd.rank()}.pt")
+                if not os.path.exists(path):
+                    torch.save({k: p.grad.detach().cpu()
+                                for k, p in model.named_parameters()}, path)
             if not args.local:
                 sampler.record_indices(rows)
             state.step += 1
@@ -454,6 +469,12 @@ def elastic_main(args) -> int:
                 open(once, "w").close()
                 _emit(out, "kill", rank=hvd.rank(), step=state.step)
                 os._exit(1)
+            if kill_group and (hvd.rank(), state.step) == kill_group and \
+                    not os.path.exists(once):
+                open(once, "w").close()
+                _emit(out, "kill", rank=hvd.rank(), step=state.step,
+                      group=True)
+                os.killpg(os.getpgid(0), signal.SIGKILL)
             if ckpt is not None and state.step % args.ckpt_every == 0:
                 try:
                     ckpt.save(state.step, {"model": model_state(model)},
@@ -491,6 +512,93 @@ def soak_plan(out) -> dict:
         {"seam": "kv.request", "kind": "blackout", "start": 0, "stop": 2},
         {"seam": "step", "kind": "kill", "rank": 1, "start": 3, "stop": 4,
          "marker": os.path.join(str(out), "killed_{rank}")}]}
+
+
+def agent_payload(argv) -> dict:
+    """The elastic trainer (``elastic`` and ``argv``) as an agent
+    transport payload: returns this rank's ``done`` record."""
+    args = _args(["elastic", *map(str, argv)])
+    elastic_main(args)
+    return [e for e in events(args.out)
+            if e["kind"] == "done" and e["pid"] == os.getpid()][-1]
+
+
+_AGENT_MAIN = ("import json, sys\n"
+               "from horovod_tpu_torch.runner.elastic.agent import "
+               "agent_loop\n"
+               "agent_loop(**json.loads(sys.stdin.readline()))\n")
+
+
+def start_local_agents(ctx: dict, n: int, env=None, host=None,
+                       hold=lambda: False, stats=None):
+    """``start_agents`` for ``run_agent_elastic``: ``n`` host agents as
+    processes of this host (each the leader of its own process group, its
+    secrets on stdin), registering under ``host`` (default: the
+    hostname). A thread respawns a lost agent, under the next ordinal,
+    once its heartbeat has gone stale and ``hold()`` is false (as
+    ``ElasticRayExecutor``'s respawner tops the registry up). Returns
+    once all ``n`` have registered. ``stats``
+    (a dict) gets ``stale_at``: when the lost agent's heartbeat was seen
+    stale, ``respawned_at``, and ``pgids``: every agent's process group.
+    Returns the cleanup callable."""
+    import subprocess
+    import threading
+
+    from horovod_tpu_torch.runner.elastic.agent import STALE_S
+    kv = ctx["kv"]
+    wenv = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]), **(env or {}))
+    procs, stop = [], threading.Event()
+    stats = {} if stats is None else stats
+
+    def spawn():
+        p = subprocess.Popen([sys.executable, "-c", _AGENT_MAIN],
+                             stdin=subprocess.PIPE, env=wenv, cwd=REPO,
+                             start_new_session=True, text=True)
+        p.stdin.write(json.dumps(dict(
+            ordinal=len(procs), kv_addr="127.0.0.1", kv_port=ctx["kv_port"],
+            secret_hex=ctx["secret_hex"],
+            world_secret_hex=ctx["world_secret_hex"], host=host)) + "\n")
+        p.stdin.close()
+        procs.append(p)
+        stats.setdefault("pgids", []).append(p.pid)
+
+    def fresh() -> int:
+        return sum(time.time() - json.loads(b)["ts"] < STALE_S
+                   for b in kv.scope("agents").values())
+
+    def respawner():
+        while not stop.wait(0.1):
+            lost = sum(p.poll() is not None for p in procs)
+            if lost and fresh() < n:
+                stats.setdefault("stale_at", time.time())
+                if not hold() and len(procs) < n + lost:
+                    spawn()
+                    stats["respawned_at"] = time.time()
+
+    for _ in range(n):
+        spawn()
+    # the first world is all n: the driver starts once min_np registered
+    deadline = time.time() + 120
+    while len(kv.scope("agents")) < n:
+        if time.time() > deadline or any(p.poll() is not None
+                                         for p in procs):
+            raise RuntimeError(f"{len(kv.scope('agents'))} of {n} host "
+                               f"agents registered")
+        time.sleep(0.05)
+    th = threading.Thread(target=respawner, daemon=True)
+    th.start()
+
+    def cleanup():
+        stop.set()
+        th.join(10)
+        for p in procs:   # shutdown is posted: the loops return
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return cleanup
 
 
 def events(out) -> list:
