@@ -487,6 +487,8 @@ shared card and host. Every phase prints one line; any failure raises and
 exits non-zero, and nothing falls back to the CPU. The last lines are the card's name and
 power limit, a JSON line with each kernel's numbers, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``--straggler-rounds N`` runs only ``[driver_chaos]`` beside
+``[autopilot_straggler]``, N times over, for a check of that pair.
 """
 
 from __future__ import annotations
@@ -2049,7 +2051,9 @@ def layout_reference_grads(torch, moe: bool, sizes: dict, dev,
         np.random.RandomState(0), cfg)))
     tok, tgt = (x.to(dev) for x in flagship_batch(cfg))
     groups = (sizes.get("dp", 1) * sizes.get("ep", 1), sizes.get("sp", 1))
-    with grouped_moe(groups):
+    # grouped_moe swaps a module attribute: only the MoE world may, since
+    # the layout worlds compute their references side by side on threads
+    with grouped_moe(groups) if moe else contextlib.nullcontext():
         loss, aux = forward_loss_spmd(model, tok, tgt, None)
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(loss + 0.01 * aux, params)
@@ -2115,7 +2119,11 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
                                                    f"grads32_{r}.pt")))
     world_s = time.perf_counter() - t0
     routes32, routes16 = [], []
-    with record_routes(routes32):
+    # only the MoE world gates: the other layout worlds run beside it on
+    # other threads, and a spy of theirs would wrap, or on exit unwrap,
+    # this world's spy of the one module attribute
+    spy = record_routes if moe else contextlib.nullcontext
+    with spy(routes32):
         ref = layout_reference_grads(torch, moe, sizes, dev, torch.float32)
 
     def per_leaf(rank_grads, full_grads):
@@ -2130,7 +2138,7 @@ def phase_layout(torch, role: str, card: str, dev) -> list:
         return out
 
     errs, errs32 = per_leaf(grads, ref), per_leaf(grads32, ref)
-    with record_routes(routes16):
+    with spy(routes16):
         one16 = layout_reference_grads(torch, moe, sizes, dev,
                                        torch.bfloat16)
     floor = {k: rel_l2(one16[k], ref[k]) for k in ref}
@@ -5717,7 +5725,8 @@ def phase_autopilot_straggler(torch, card: str) -> dict:
              and d["outcome"] == "fired"]
     check(len(fired) == 1 and fired[0]["target_rank"] == 2
           and fired[0]["rank"] == 0, f"autopilot_straggler: decisions "
-                                     f"{decisions}")
+          f"{decisions}; rank 0's findings "
+          f"{dones.get(0, {}).get('chaos', {}).get('findings')}")
     counted = dones[0]["chaos"]["autopilot"].get(
         'hvd_autopilot_decisions_total{outcome="fired",'
         'policy="straggler-drain"}')
@@ -5745,6 +5754,8 @@ def phase_autopilot_straggler(torch, card: str) -> dict:
                               "preemption_drain")
     say("autopilot_straggler", card=card, world=3, depth=CHAOS_LAYERS,
         seconds=secs, stall="rank 2, steps 1-5, 1.2 s",
+        rank0_findings=",".join(f"{f['kind']}:{f.get('rank')}"
+                                for f in dones[0]["chaos"]["findings"]),
         finding_to_action_s=t_fired - finding[0]["ts"],
         action_to_healed_s=healed - t_fired,
         action_to_readmitted_step_s=full - t_fired,
@@ -6879,7 +6890,44 @@ def main() -> int:
     return 0
 
 
+def straggler_rounds_main(rounds: int, boot_s: float) -> int:
+    """``chip_smoke.py --straggler-rounds N [BOOT_S]``: build the kernels,
+    then run ``[driver_chaos]`` beside ``[autopilot_straggler]`` N times, as
+    the full run does once (``BOOT_S``: the workers' boot that
+    ``[preempt_drain]`` would measure). Each phase prints its line and each
+    round one ``[straggler_round]`` line; a failed check's message goes to
+    stderr. Exits 1 if a round failed, and prints no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch.ops import _build
+    _build.build_all()
+    card = torch.cuda.get_device_name(0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    failed = 0
+    for i in range(rounds):
+        t0 = time.perf_counter()
+        try:
+            _concurrently(lambda: phase_driver_chaos(torch, card, boot_s),
+                          lambda: phase_autopilot_straggler(torch, card))
+            ok = True
+        except Exception as e:
+            ok, failed = False, failed + 1
+            print(f"chip_smoke: round {i}: {e}", file=sys.stderr, flush=True)
+        say("straggler_round", round=i, ok=ok,
+            seconds=time.perf_counter() - t0)
+    return 1 if failed else 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--straggler-rounds"]:
+        sys.exit(straggler_rounds_main(
+            int(sys.argv[2]),
+            float(sys.argv[3]) if len(sys.argv) > 3 else 29.0))
     if sys.argv[1:2] == ["--gloo-rank"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         role = sys.argv[3] if len(sys.argv) > 3 else "dp"

@@ -40,7 +40,9 @@ watcher (under an elastic driver) and the autopilot's policy engine.
 shutdown does: every rank meets at a barrier, bounded by
 ``HVD_TPU_SHUTDOWN_GRACE_S``, before any rank destroys the group, so rank
 0 (whose process hosts the rendezvous store) cannot tear the store down
-while a peer still needs it. ``force=True`` (the elastic path after a
+while a peer still needs it; after the barrier the other ranks return only
+once rank 0's store has closed, so ``init`` may rendezvous again on the
+same port. ``force=True`` (the elastic path after a
 peer died, where no barrier can complete) tears the group down at once;
 under NCCL it aborts the communicators, so a dead peer cannot hang the
 survivor in ``destroy_process_group``. Inside an elastic re-mesh
@@ -322,7 +324,7 @@ def shutdown(force: bool = False) -> None:
                 if force:
                     _abort_group(_state.backend)
                 else:
-                    dist.destroy_process_group()
+                    _destroy_after_store(_state.config.shutdown_grace_s)
 
 
 def _agree_to_end(grace: float) -> bool:
@@ -340,6 +342,32 @@ def _agree_to_end(grace: float) -> bool:
             "shutdown: the world did not agree to end within %.1f s (%s); "
             "tearing the group down without waiting", grace, e)
         return False
+
+
+def _destroy_after_store(grace: float) -> None:
+    """Destroy the group; a rank other than 0 returns only once rank 0's
+    store has closed (bounded by ``grace``). Otherwise a rank could
+    ``init`` again on the same rendezvous port while rank 0's old store
+    still listens, read the old world's keys there and lose the
+    connection when the store closes under it."""
+    store = None
+    if dist.get_world_size() > 1 and dist.get_rank() != 0:
+        from torch.distributed import distributed_c10d
+        store = distributed_c10d._get_default_store()
+    dist.destroy_process_group()
+    if store is None:
+        return
+    try:
+        # no rank sets this key: the wait ends when the server hangs up
+        store.wait(["hvd_tpu/shutdown/store_closed"],
+                   datetime.timedelta(seconds=grace))
+    except dist.DistNetworkError:
+        return                  # the server hung up: the store is closed
+    except RuntimeError as e:   # DistStoreError: the wait timed out
+        from horovod_tpu_torch.common.logging import get_logger
+        get_logger().warning(
+            "shutdown: rank 0's store did not close within %.1f s (%s)",
+            grace, e)
 
 
 def _abort_group(backend: str) -> None:

@@ -7,6 +7,9 @@ negotiation in steady state, tensor fusion, and the TCP ring collectives),
 compiled from the repository's sources into a library of the port's own.
 The port never loads ``horovod_tpu/core/libhvdcore.so`` and never runs
 ``make`` in ``cpp/`` (which writes ``cpp/*.o`` and that library).
+``collectives.cc`` is the port's copy beside this module (fp16 rounds to
+nearest with ties to even, as numpy, torch and gloo do; ``cpp/``'s rounds
+ties away from zero); the other sources are ``cpp/``'s.
 
 :func:`library_path` builds at first use: one ``g++`` per source, all
 started together, with ``cpp/Makefile``'s flags and the ``g++`` on
@@ -38,6 +41,13 @@ BUILD_DIR = os.path.join(REPO, "build", "horovod_tpu_torch")
 CXXFLAGS = ("-O2", "-g", "-std=c++17", "-fPIC", "-pthread")
 SOURCES = ("transport.cc", "collectives.cc", "adasum.cc", "bayes_opt.cc",
            "core.cc", "timeline.cc", "capi.cc")
+# the sources the port keeps a copy of, beside this module
+PORT_SOURCES = ("collectives.cc",)
+
+
+def _source(name: str) -> str:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.join(here if name in PORT_SOURCES else CPP, name)
 
 _lock = threading.Lock()
 
@@ -59,7 +69,7 @@ def _digest() -> str:
     except RuntimeError:
         cxx = ""
     h = hashlib.sha256(" ".join((cxx,) + CXXFLAGS).encode())
-    paths = [os.path.join(CPP, s) for s in SOURCES]
+    paths = [_source(s) for s in SOURCES]
     paths += sorted(glob.glob(os.path.join(CPP, "*.h")))
     for p in paths:
         h.update(os.path.basename(p).encode())
@@ -93,7 +103,7 @@ def _build(target: str) -> None:
     for src in SOURCES:
         obj = os.path.join(objdir, src[:-3] + ".o")
         procs.append((src, subprocess.Popen(
-            [cxx, *CXXFLAGS, "-c", os.path.join(CPP, src), "-o", obj],
+            [cxx, *CXXFLAGS, "-I", CPP, "-c", _source(src), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
     for src, p in procs:

@@ -33,8 +33,9 @@ External detectors (the ``hbm_growth`` sampler of
 :mod:`horovod_tpu_torch.profiling.memory`, the ``recompile_storm`` watch)
 report through :func:`report_finding`. A fifth training detector,
 ``persistent_straggler``, charges the SAME rank as the fleet's slowest
-for N consecutive aggregation windows (fed by the fleet aggregator on
-rank 0, :mod:`horovod_tpu_torch.metrics.fleet`).
+for N consecutive aggregation windows that each brought new steps of it
+(fed by the fleet aggregator on rank 0,
+:mod:`horovod_tpu_torch.metrics.fleet`).
 
 Every finding lands three ways: a ``hvd_anomaly_total{kind=...}``
 counter, an ``anomaly`` flight-recorder event, and the engine's bounded
@@ -256,6 +257,7 @@ class AnomalyEngine:
         self._straggler_rank: Optional[int] = None
         self._straggler_run = 0
         self._straggler_active = False
+        self._straggler_steps: Optional[int] = None
         self.findings: List[dict] = []
 
     # -- feeds ---------------------------------------------------------------
@@ -298,12 +300,18 @@ class AnomalyEngine:
     def observe_fleet(self, per_rank: Dict[Any, dict]) -> List[dict]:
         """One fleet aggregation window: ``per_rank`` maps rank to a
         breakdown entry carrying ``win_step_time`` (the fleet
-        aggregator's per-push windowed mean step time).  Flags when the
-        same rank stays the slowest — and meaningfully slower than the
-        fleet mean — for N consecutive windows."""
+        aggregator's per-push windowed mean step time) and ``steps``.
+        Flags when the same rank stays the slowest — and meaningfully
+        slower than the fleet mean — for N consecutive windows that each
+        brought steps of that rank: a window in which its step count did
+        not move carries its last window over, which is no new evidence
+        (else one slow step, such as a rank's warm-up while its peers
+        wait for it, would be charged N times)."""
         times = {int(r): e["win_step_time"] for r, e in per_rank.items()
                  if isinstance(e, dict)
                  and isinstance(e.get("win_step_time"), (int, float))}
+        steps = {int(r): e.get("steps") for r, e in per_rank.items()
+                 if isinstance(e, dict)}
         with self._lock:
             if len(times) < 2:
                 self._straggler_run = 0
@@ -321,11 +329,15 @@ class AnomalyEngine:
                 self._straggler_active = False
                 return []
             if worst == self._straggler_rank:
+                if steps.get(worst) is not None and \
+                        steps[worst] == self._straggler_steps:
+                    return []
                 self._straggler_run += 1
             else:
                 self._straggler_rank = worst
                 self._straggler_run = 1
                 self._straggler_active = False
+            self._straggler_steps = steps.get(worst)
             if self._straggler_active or \
                     self._straggler_run < self._straggler_windows:
                 return []
@@ -457,6 +469,7 @@ class AnomalyEngine:
             self._straggler_rank = None
             self._straggler_run = 0
             self._straggler_active = False
+            self._straggler_steps = None
 
 
 _ENGINE: Optional[AnomalyEngine] = None

@@ -5,7 +5,7 @@ Reference: ``horovod/runner/elastic/driver.py`` (``ElasticDriver``: discovery
 thread :181-201, stable rank assignment :233-275, worker spawn per slot
 :277-295, blacklist + exit handling :297-313).
 
-A copy of ``horovod_tpu/runner/elastic/driver.py`` with two departures:
+A copy of ``horovod_tpu/runner/elastic/driver.py`` with these departures:
 
 * **Rendezvous ports are held, never handed over.** The JAX driver takes
   each world's port from ``exec_run.free_port`` (bind port 0, close,
@@ -14,6 +14,11 @@ A copy of ``horovod_tpu/runner/elastic/driver.py`` with two departures:
   reserve_port` and holds the socket until the next world's port is
   reserved or the driver ends, so rank 0's store binds a port nobody
   else could take.
+* **An adopted worker is its pid and its start time.** The spawn record
+  carries the pid's start time (``start``, an optional field the JAX
+  journal ignores), and a takeover driver signals the pid's group only
+  while the pid still names that process: the JAX driver polls and kills
+  the bare pid, which the kernel may have given to another process.
 
 The design — every world change keeps SURVIVORS in-process
 (reference: the reset loop, ``common/elastic.py:151-175``); the
@@ -61,7 +66,10 @@ from horovod_tpu_torch.runner.exec_run import reserve_port, slot_command
 from horovod_tpu_torch.runner.hosts import (HostInfo, SlotInfo,
                                       get_host_assignments)
 from horovod_tpu_torch.runner.safe_exec import (GRACEFUL_TERMINATION_TIME_S,
-                                          safe_execute)
+                                                is_same_process,
+                                                kill_group_of,
+                                                process_start_time,
+                                                safe_execute)
 
 DISCOVERY_INTERVAL_S = 1.0
 
@@ -1260,9 +1268,15 @@ class ElasticDriver:
             # the journaled pid is what lets a takeover driver ADOPT
             # this worker: monitor its liveness, and kill its process
             # group if the generation must die
+            # ``start`` (the pid's start time, optional: the JAX
+            # package's journal neither writes nor needs it) lets the
+            # adopter tell this worker from a later process that the
+            # kernel gave the same pid
+            extra = {} if pid is None else \
+                {"start": process_start_time(pid)}
             self._journal_append("spawn", key=list(key),
                                  host=slot.hostname, rank=slot.rank,
-                                 pid=pid, ts=journal_mod.now_wall())
+                                 pid=pid, ts=journal_mod.now_wall(), **extra)
 
         if self._remote_exec is not None:
             # agent transport: ship the RAW worker command + env; the
@@ -1590,11 +1604,14 @@ class ElasticDriver:
             slot = slot_for(key, rec)
             g.slot_by_key.setdefault(key, slot)
             g.current_rank.setdefault(key, rec.get("rank", key[1]))
-            pid = rec.get("pid")
-            if pid and slot.hostname in local_names:
+            pid, start = rec.get("pid"), rec.get("start")
+            # a record without the pid's start time cannot tell the
+            # worker from a later process with its pid: only the
+            # receipt is trusted, and nothing is signalled
+            if pid and start is not None and slot.hostname in local_names:
                 t = threading.Thread(
                     target=self._monitor_adopted,
-                    args=(g, key, slot, int(pid)), daemon=True)
+                    args=(g, key, slot, int(pid), int(start)), daemon=True)
             else:
                 t = threading.Thread(
                     target=self._await_adopted_result,
@@ -1629,32 +1646,27 @@ class ElasticDriver:
         return g
 
     def _monitor_adopted(self, g: _GenRuntime, key: tuple, slot,
-                         pid: int) -> None:
+                         pid: int, start: int) -> None:
         """Stand-in for the :meth:`_run_slot` thread of a worker THIS
         process never spawned: poll the adopted pid for liveness,
         escalate a generation teardown to its process group, and
         classify the exit from the worker's signed completion receipt
-        (the exit CODE died with the old driver)."""
+        (the exit CODE died with the old driver).
+
+        The worker is the pid AND its start time (``start``, from the
+        spawn record): once the pid names another
+        process, the worker has ended, and that process is never
+        signalled."""
         import signal as _signal
         killed_at = None
-        while True:
+        while is_same_process(pid, start):
             if g.failure.is_set() or g.teardown.is_set():
-                try:
-                    pgid = os.getpgid(pid)
-                    if killed_at is None:
-                        os.killpg(pgid, _signal.SIGTERM)
-                        killed_at = time.monotonic()
-                    elif time.monotonic() - killed_at > \
-                            GRACEFUL_TERMINATION_TIME_S:
-                        os.killpg(pgid, _signal.SIGKILL)
-                except (ProcessLookupError, PermissionError):
-                    pass
-            try:
-                os.kill(pid, 0)
-            except ProcessLookupError:
-                break
-            except PermissionError:
-                pass  # alive, different uid — keep watching
+                if killed_at is None:
+                    kill_group_of(pid, start, _signal.SIGTERM)
+                    killed_at = time.monotonic()
+                elif time.monotonic() - killed_at > \
+                        GRACEFUL_TERMINATION_TIME_S:
+                    kill_group_of(pid, start, _signal.SIGKILL)
             time.sleep(0.25)
         rc = 0 if self._adopted_result_ok(g, key) else 1
         self._classify_exit(g, slot, key, rc)
@@ -1662,8 +1674,9 @@ class ElasticDriver:
     def _await_adopted_result(self, g: _GenRuntime, key: tuple,
                               slot) -> None:
         """Adoption monitor for a worker with no observable pid (remote
-        exec, or the spawn record lost its pid): the only signal is the
-        signed completion receipt.  Documented limitation: such a
+        exec, or the spawn record lacks its pid or its start time): the
+        only signal is the signed completion receipt.  Documented
+        limitation: such a
         worker's DEATH is invisible until a peer's transport error
         surfaces it — the reactive path still covers it, later."""
         while not (g.failure.is_set() or g.teardown.is_set()):

@@ -4,7 +4,9 @@ Reference: ``horovod/runner/common/util/safe_shell_exec.py`` — spawn in a new
 process group, pump stdout/stderr with threads, kill the whole group on
 termination so stray grandchildren don't leak.
 
-A copy of ``horovod_tpu/runner/safe_exec.py``.
+A copy of ``horovod_tpu/runner/safe_exec.py``, plus the identity check
+(:func:`process_start_time`, :func:`kill_group_of`) that a kill of a pid
+read from a record makes first: the JAX package kills such pids unchecked.
 """
 
 from __future__ import annotations
@@ -93,6 +95,44 @@ def safe_execute(command: List[str], env: Optional[Dict[str, str]] = None,
     if watcher:
         watcher.join(timeout=1)
     return rc
+
+
+def process_start_time(pid: int) -> Optional[int]:
+    """When ``pid`` started, in clock ticks since boot (field 22 of
+    ``/proc/<pid>/stat``), or None when no such process runs (a zombie
+    has ended). A pid the kernel hands out again comes with another start
+    time, so the pair names one process."""
+    try:
+        with open(f"/proc/{int(pid)}/stat", "rb") as f:
+            stat = f.read()
+    except (OSError, ValueError):
+        return None
+    # field 2, the command, is in parentheses and may hold spaces;
+    # the fields after it start at field 3 (the state)
+    fields = stat[stat.rindex(b")") + 2:].split()
+    if fields[0] in (b"Z", b"X"):
+        return None
+    return int(fields[19])
+
+
+def is_same_process(pid: int, start: Optional[int]) -> bool:
+    """Whether ``pid`` still names the process that started at ``start``
+    (:func:`process_start_time`, taken when it was spawned or adopted).
+    Confirm this before signalling a pid this process does not hold as a
+    ``Popen``: the pid of a process that ended may name another one."""
+    return start is not None and process_start_time(pid) == start
+
+
+def kill_group_of(pid: int, start: Optional[int], sig: int) -> bool:
+    """Signal the process group of ``pid`` if ``pid`` is still the
+    process that started at ``start``; returns whether it was sent."""
+    if not is_same_process(pid, start):
+        return False
+    try:
+        os.killpg(os.getpgid(pid), sig)
+    except (ProcessLookupError, PermissionError):
+        return False
+    return True
 
 
 def terminate_process_group(proc: subprocess.Popen) -> None:

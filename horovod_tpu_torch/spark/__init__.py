@@ -12,8 +12,8 @@ the local rank counted among the tasks on its executor's host).
 
 Importing it needs no pyspark: ``run`` and ``run_elastic`` check for it
 when called. The Store abstraction (reference:
-``spark/common/store.py:36-530``) and the estimators work without Spark.
-The Keras estimator of the JAX package is not part of the port.
+``spark/common/store.py:36-530``) and the estimators (torch, and Keras over
+the port's TF shim) work without Spark.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from horovod_tpu_torch.spark.estimator import (  # noqa: F401
     HorovodEstimator, HorovodModel)
 from horovod_tpu_torch.spark.torch_estimator import (  # noqa: F401
     TorchEstimator, TorchModel)
+from horovod_tpu_torch.spark.keras_estimator import (  # noqa: F401
+    KerasEstimator, KerasModel)
 
 
 def run_elastic(*args, **kwargs):

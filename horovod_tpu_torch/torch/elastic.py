@@ -116,7 +116,8 @@ class TorchState(ObjectState):
     ``torch/elastic/state.py`` TorchState with Model/Optimizer/Sampler
     handlers): snapshots model + optimizer ``state_dict``s and sampler
     progress TOGETHER with the scalar attributes — one consistent unit for
-    commit/restore, rank-0 broadcast sync, and (under the elastic driver)
+    commit/restore, rank-0 broadcast sync (the samplers' processed indices
+    are the union over every rank), and (under the elastic driver)
     generation-restart persistence. ``name`` distinguishes concurrent
     states sharing a checkpoint dir.
     """
@@ -166,9 +167,20 @@ class TorchState(ObjectState):
         self._apply(self.torch_snaps)
 
     def sync(self) -> None:
-        # rank 0's LIVE objects are the source of truth; ObjectState.sync
-        # broadcasts the snapshot dict with the scalars in one object
+        # rank 0's LIVE model and optimizer are the source of truth;
+        # ObjectState.sync broadcasts the snapshot dict with the scalars
+        # in one object. Sampler progress is every rank's: the processed
+        # indices are unioned over the world first (reference:
+        # SamplerStateHandler.sync), so no rank's rows are drawn again.
+        # The JAX package keeps rank 0's indices only.
         self.torch_snaps = self._capture()
+        if self._samplers and size() > 1:
+            from horovod_tpu_torch.train.optimizer import allgather_object
+            mine = {k: s.processed_indices for k, s in self._samplers.items()}
+            world = allgather_object(mine, name=f"elastic.{self._name}.idx")
+            for k in self._samplers:
+                self.torch_snaps["samplers"][k]["processed_indices"] = \
+                    set().union(*(w[k] for w in world))
         super().sync()
         self._apply(self.torch_snaps)
 

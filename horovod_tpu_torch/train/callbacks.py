@@ -142,6 +142,13 @@ class StepTimer:
 
     def start_step(self) -> None:
         self._t0 = time.perf_counter()
+        # goodput ledger: the step envelope is the ledger's spine —
+        # begin/end bracket the in-step account, the gap between them is
+        # the out-of-step one. It opens with the step's own clock, so a
+        # capture that starts below (its profiler start-up is step time)
+        # lies inside the window that a window's first step opens
+        from horovod_tpu_torch.metrics import goodput
+        goodput.note_step_begin()
         from horovod_tpu_torch.diagnostics.flight_recorder import record_event
         # +1: number the step being ENTERED, matching the post-increment
         # number its step_end will carry (begin/end pairs must agree)
@@ -151,11 +158,6 @@ class StepTimer:
         # torch.profiler window at this step boundary; no-op otherwise
         from horovod_tpu_torch import profiling
         profiling.on_step_begin(step_no)
-        # goodput ledger: the step envelope is the ledger's spine —
-        # begin/end bracket the in-step account, the gap between them is
-        # the out-of-step one
-        from horovod_tpu_torch.metrics import goodput
-        goodput.note_step_begin()
 
     def end_step(self, units: float = 0.0) -> Optional[float]:
         """Close the step opened by :meth:`start_step`; returns the step

@@ -10,6 +10,7 @@ replays to the driver's final state (the port's version of
 
 import os
 import sys
+import time
 
 import pytest
 
@@ -122,3 +123,133 @@ def test_peer_loss_is_an_internal_error():
             with peer_loss():
                 raise err
         assert not isinstance(ei.value, HorovodInternalError)
+
+
+SAMPLER_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "torch_port_sampler_worker.py")
+
+
+def _sampler_world(pkg, tmp_path) -> list:
+    """Both ranks' documents of ``torch_port_sampler_worker.py``."""
+    import json
+
+    from torch_port_worker import launch_env_world
+    if pkg == "jax":
+        from horovod_tpu.core import core_available
+        if not core_available():
+            pytest.skip("the JAX package's libhvdcore.so is not built")
+    launch_env_world([SAMPLER_WORKER, "--pkg", pkg, "--out", str(tmp_path)],
+                     2, tmp_path, name=pkg, timeout=90)
+    docs = []
+    for r in range(2):
+        with open(tmp_path / f"{pkg}.rank{r}.json") as f:
+            docs.append(json.load(f))
+    return docs
+
+
+def test_sync_unions_every_ranks_sampler_progress(tmp_path):
+    """Two ranks that processed different rows sync one ``TorchState``:
+    every rank then holds the union of the processed rows, and no row
+    that any rank processed is drawn again (reference:
+    ``SamplerStateHandler.sync``; ROADMAP queue 3 item 15)."""
+    docs = _sampler_world("port", tmp_path)
+    done = sorted(i for d in docs for i in d["processed"])
+    assert done == [0, 1, 2, 3]
+    for d in docs:
+        assert d["after"] == done, d
+    left = [i for d in docs for i in d["left"]]
+    assert not set(left) & set(done), docs
+    assert sorted(left) == list(range(4, 12))
+
+
+def test_jax_sync_keeps_rank0_sampler_progress(tmp_path):
+    """Pins the JAX package's sync: rank 0's processed rows only, so rank
+    1's rows 1 and 3 are drawn again after the sync."""
+    docs = _sampler_world("jax", tmp_path)
+    for d in docs:
+        assert d["after"] == [0, 2], d
+    left = [i for d in docs for i in d["left"]]
+    assert {1, 3} <= set(left)
+
+
+def test_a_recorded_pid_of_another_process_is_never_signalled():
+    """A journal's pid that names another live process (its start time is
+    not the recorded one) is left alone by the test driver's timeout kill;
+    the process the record names is killed."""
+    import signal
+    import subprocess
+    from types import SimpleNamespace
+
+    from horovod_tpu_torch.runner.safe_exec import process_start_time
+    other = subprocess.Popen([sys.executable, "-c",
+                              "import time; time.sleep(120)"],
+                             start_new_session=True)
+    try:
+        start = process_start_time(other.pid)
+        assert start is not None
+        stale = SimpleNamespace(live={(0, 0): {"pid": other.pid,
+                                               "start": start - 1},
+                                      (0, 1): {"pid": other.pid},
+                                      (0, 2): {"pid": None}})
+        assert worker.kill_live_workers(stale) == []
+        time.sleep(0.2)
+        assert other.poll() is None
+        same = SimpleNamespace(live={(0, 0): {"pid": other.pid,
+                                              "start": start}})
+        assert worker.kill_live_workers(same) == [other.pid]
+        assert other.wait(10) == -signal.SIGKILL
+    finally:
+        if other.poll() is None:
+            other.kill()
+            other.wait()
+
+
+def test_adopting_driver_never_signals_a_reused_pid():
+    """A takeover driver's monitor of an adopted worker whose pid now
+    names another process (a start time that is not the spawn record's)
+    takes the worker as ended and signals nothing, even with the
+    generation torn down; a pid that still names its worker gets SIGTERM
+    and is watched until it ends."""
+    import subprocess
+    import threading
+    from types import SimpleNamespace
+
+    from horovod_tpu_torch.runner.elastic.driver import ElasticDriver
+    from horovod_tpu_torch.runner.safe_exec import process_start_time
+
+    class Stub:
+        def __init__(self):
+            self.exits = []
+
+        def _adopted_result_ok(self, g, key):
+            return False
+
+        def _classify_exit(self, g, slot, key, rc):
+            self.exits.append(rc)
+
+    g = SimpleNamespace(failure=threading.Event(),
+                        teardown=threading.Event())
+    g.teardown.set()
+    other = subprocess.Popen([sys.executable, "-c",
+                              "import time; time.sleep(120)"],
+                             start_new_session=True)
+    try:
+        start = process_start_time(other.pid)
+        stub = Stub()
+        ElasticDriver._monitor_adopted(stub, g, (0, 0), None, other.pid,
+                                       start - 1)
+        assert stub.exits == [1]
+        time.sleep(0.2)
+        assert other.poll() is None
+        # the real worker: its parent (here, this test) reaps it, as
+        # init reaps an orphan
+        reaper = threading.Thread(target=other.wait, daemon=True)
+        reaper.start()
+        ElasticDriver._monitor_adopted(stub, g, (0, 0), None, other.pid,
+                                       start)
+        reaper.join(10)
+        assert stub.exits == [1, 1] and other.returncode == -15
+    finally:
+        if other.poll() is None:
+            other.kill()
+            other.wait()

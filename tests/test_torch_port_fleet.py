@@ -342,6 +342,34 @@ def test_observe_fleet_equals_jax(monkeypatch, no_jax_side_effects):
     assert engines["t"]._straggler_run == 0
 
 
+def test_a_carried_over_window_is_no_new_evidence(monkeypatch,
+                                                  no_jax_side_effects):
+    """One slow step (rank 1's warm-up, its peers waiting on it) stays the
+    slowest while the aggregators carry each idle rank's last window over.
+    The port counts only windows that brought steps of the charged rank, so
+    it flags rank 2, slow over two fresh steps, and not rank 1. The JAX
+    detector counts the carried windows and flags rank 1 first (pinned)."""
+    monkeypatch.setenv("HVD_TPU_ANOMALY_STRAGGLER_WINDOWS", "2")
+    monkeypatch.setenv("HVD_TPU_ANOMALY_STRAGGLER_RATIO", "1.3")
+    regs = _regs("t", 3, lambda r, reg: None)
+    aggs = [_agg("t", r, 3, regs[r]) for r in range(3)]
+    engines = {"j": j_anomaly.AnomalyEngine(registry=j_reg.Registry()),
+               "t": t_anomaly.AnomalyEngine(registry=t_reg.Registry())}
+    warm_up = {0: 0.10, 1: 0.20, 2: 0.10}
+    stalled = {0: 0.10, 1: 0.10, 2: 1.30}
+    found = {p: [] for p in engines}
+    for w, steps in enumerate([warm_up, {}, {}, {}, stalled, {}, stalled]):
+        for r, t in steps.items():
+            regs[r].histogram("hvd_step_time_seconds").observe(t)
+        for child in (1, 2):
+            assert aggs[0].ingest(aggs[child].subtree_doc())
+        per_rank = aggs[0].subtree_doc()["per_rank"]
+        for p, eng in engines.items():
+            found[p] += [(f["rank"], w) for f in eng.observe_fleet(per_rank)]
+    assert found["t"] == [(2, 6)]
+    assert found["j"] == [(1, 1), (2, 5)]
+
+
 # -- the metrics CLI -------------------------------------------------------------------
 
 def _scrape_text():

@@ -30,8 +30,10 @@ def _port_sources():
 
 
 def test_importing_every_module_loads_no_jax():
-    """The walk imports spark and ray too: neither needs pyspark, ray or
-    keras to import (none is installed here)."""
+    """The walk imports spark and ray too, and the TensorFlow and Keras
+    shims: none of them needs pyspark or ray (not installed here), nor
+    tensorflow or keras (installed here: the shims import them at first
+    use, so the walk must leave them unimported)."""
     code = (
         "import pkgutil, importlib, sys, horovod_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -40,7 +42,14 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'ml_dtypes', 'horovod_tpu', "
         "'pyspark', 'ray', 'keras', 'tensorflow'))\n"
-        "need = {'horovod_tpu_torch.spark', 'horovod_tpu_torch.ray'}\n"
+        "need = {'horovod_tpu_torch.spark', 'horovod_tpu_torch.ray',\n"
+        "        'horovod_tpu_torch.tensorflow',\n"
+        "        'horovod_tpu_torch.tensorflow.elastic',\n"
+        "        'horovod_tpu_torch.tensorflow.keras',\n"
+        "        'horovod_tpu_torch.tensorflow.sync_batch_norm',\n"
+        "        'horovod_tpu_torch.keras', 'horovod_tpu_torch.keras.elastic',\n"
+        "        'horovod_tpu_torch.spark.keras_estimator',\n"
+        "        'horovod_tpu_torch.spark.keras'}\n"
         "print(len(mods), bad, need - set(mods))\n"
         "sys.exit(1 if bad or len(mods) < 8 or need - set(mods) else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -79,6 +88,12 @@ CONTROL_PLANE = ("common.retry", "runner.hosts", "runner.safe_exec",
                  "ray.__init__")
 
 
+# the TensorFlow and Keras shims and the Keras estimator
+TF_KERAS = ("tensorflow.__init__", "tensorflow.elastic", "tensorflow.keras",
+            "tensorflow.sync_batch_norm", "keras.__init__", "keras.elastic",
+            "spark.keras_estimator", "spark.keras")
+
+
 def _covered(modules):
     import pkgutil
     walked = {m.name for m in pkgutil.walk_packages(
@@ -101,6 +116,11 @@ def test_control_plane_modules_are_covered():
     chaos, preemption, autopilot and rollout slice, and of the agent
     transport, NIC probe, Spark and Ray slice."""
     _covered(CONTROL_PLANE)
+
+
+def test_tf_keras_modules_are_covered():
+    """And every module of the TensorFlow and Keras slice."""
+    _covered(TF_KERAS)
 
 
 def test_sources_import_nothing_of_jax():

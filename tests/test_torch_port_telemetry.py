@@ -267,6 +267,28 @@ def test_uncounted_is_inert_outside_a_count_and_counts_do_not_nest():
         mfu.flops_per_step(mfu.flops_per_step, lambda: None)
 
 
+def test_a_capture_at_a_window_s_first_step_stays_in_the_books(monkeypatch):
+    """A capture starting at each step boundary (its profiler start-up is
+    step time, here 0.3 s) and 0.3 s between the steps: the window opened
+    by the first step holds both start-ups, so the gap is out-of-step time.
+    The window used to open after the start-up, and the steps' seconds
+    then covered the gap."""
+    import time
+
+    from horovod_tpu_torch.train.callbacks import StepTimer
+    monkeypatch.setattr(profiling, "on_step_begin",
+                        lambda step: time.sleep(0.3))
+    timer = StepTimer()
+    timer.start_step()
+    timer.end_step()
+    time.sleep(0.3)
+    timer.start_step()
+    timer.end_step()
+    closed = goodput.flush()
+    assert closed["closed"] and closed["seconds"]["input_wait"] > 0.25, \
+        closed
+
+
 def test_analytic_flops_formula():
     assert mfu.analytic_flops(10, 4) == 240.0
     assert mfu.analytic_flops(0, 2, n_layers=1, seq=3, d_model=5) == \

@@ -483,6 +483,36 @@ def engine():
     return {"hits": np.asarray([hits])}
 
 
+def reinit():
+    """``shutdown(); init()`` on the same rendezvous port while rank 0 is
+    slow to close its store (its ``destroy_process_group`` sleeps first):
+    rank 1 must not rendezvous at the old store, so every new world forms
+    and reduces. Returns rank 1's shutdown times."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    delay = float(os.environ["HVD_TEST_DESTROY_DELAY_S"])
+    if hvd.rank() == 0:
+        destroy = dist.destroy_process_group
+
+        def slow_destroy(*a, **k):
+            time.sleep(delay)
+            return destroy(*a, **k)
+        dist.destroy_process_group = slow_destroy
+    waits = []
+    for cycle in range(3):
+        out = hvd.allreduce(torch.ones(4) * (hvd.rank() + 1), op=hvd.Sum,
+                            name=f"cycle{cycle}")
+        assert torch.equal(out, torch.full((4,), 3.0)), out
+        t0 = time.monotonic()
+        hvd.shutdown()
+        waits.append(time.monotonic() - t0)
+        hvd.init()
+    out = hvd.allreduce(torch.ones(4), op=hvd.Sum, name="last")
+    assert torch.equal(out, torch.full((4,), 2.0)), out
+    return {"waits": np.asarray(waits)}
+
+
 def stall():
     """``stall_worker.py``: rank 0 submits a tensor rank 1 never does.
     Rank 0's autopsy names the tensor and the missing rank; the stall
@@ -556,8 +586,8 @@ def spans():
 
 WORKERS = {"hvd": hvd_full, "torch": torch_adapter, "psets": psets,
            "restricted": restricted, "adasum": adasum, "cache": cache,
-           "errors": errors, "engine": engine, "stall": stall,
-           "quantized": quantized, "spans": spans}
+           "errors": errors, "engine": engine, "reinit": reinit,
+           "stall": stall, "quantized": quantized, "spans": spans}
 
 if __name__ == "__main__":
     sys.exit(worker_main(WORKERS, sys.argv[1:], lambda g: (

@@ -613,6 +613,17 @@ def command(out, *extra) -> list:
             str(out), *map(str, extra)]
 
 
+def kill_live_workers(state) -> list:
+    """SIGKILL the process group of every worker that the journal
+    ``state`` records as live and that is still the process the driver
+    spawned (its pid and start time): a pid whose worker has ended may
+    name another test's process by now. Returns the pids signalled."""
+    from horovod_tpu_torch.runner.safe_exec import kill_group_of
+    return [rec["pid"] for rec in state.live.values()
+            if rec.get("pid") is not None and
+            kill_group_of(int(rec["pid"]), rec.get("start"), signal.SIGKILL)]
+
+
 def run_driver(discovery, cmd, out, min_np=2, max_np=3, env=None,
                timeout=120.0, **driver_kw):
     """Run an ``ElasticDriver`` over ``discovery`` in a thread of this
@@ -620,7 +631,6 @@ def run_driver(discovery, cmd, out, min_np=2, max_np=3, env=None,
     ``out/journal``) and return ``(rc, driver, seconds)``. Past
     ``timeout`` every worker the journal records is killed and the call
     fails."""
-    import signal
     import threading
 
     from horovod_tpu_torch.runner.elastic import journal
@@ -639,13 +649,8 @@ def run_driver(discovery, cmd, out, min_np=2, max_np=3, env=None,
     th.start()
     th.join(timeout)
     if th.is_alive():
-        state = journal.load(os.path.join(out, "journal",
-                                          journal.JOURNAL_NAME))
-        for rec in state.live.values():
-            try:
-                os.killpg(os.getpgid(int(rec["pid"])), signal.SIGKILL)
-            except (ProcessLookupError, TypeError, ValueError):
-                pass
+        kill_live_workers(journal.load(os.path.join(
+            out, "journal", journal.JOURNAL_NAME)))
         th.join(30)
         raise AssertionError(f"the elastic driver outlived {timeout} s")
     return box.get("rc"), driver, time.monotonic() - t0
