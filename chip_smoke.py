@@ -467,7 +467,9 @@ rank's launches in ``chaos_launches``; every training rank must launch
   forward at depth 2 each: a ``transport.recv`` delay on rank 1 (counted
   by the core: 4) leaves the grouped allreduce equal to its host
   reference; a ``transport.send`` bit_flip fails the next collective,
-  rank 0 naming peer 1 and the checksum (one failure counted).
+  rank 0 naming peer 1 and the checksum (one failure counted; the port's
+  ``core/transport.cc`` gives that error whether rank 0 was receiving or
+  sending), rank 1 a closed or broken socket.
 * ``[rollout_canary]``: a ``ReplicaFleet`` of two generate-mode flagship
   replicas over a store, behind a ``Router`` with closed-loop clients, a
   ``RolloutController`` whose promote/rollback hooks the autopilot drives
@@ -477,11 +479,22 @@ rank's launches in ``chaos_launches``; every training rank must launch
   clean candidate is promoted through every stage. Zero failed requests;
   the kernels never run (the decode path is plain torch).
 
+The closing slice adds ``[examples]``: the documented scripts of
+``horovod_tpu_torch/examples`` (``EXAMPLES``) each under ``python -m
+horovod_tpu_torch.runner.launch -np 1`` on the card, the rank running the
+unchanged script through ``--example-rank`` (which counts its launches):
+``native/transformer_5d_parallel.py`` (a dp mesh of one, bf16, ten steps)
+prints its ten ``step <i>: loss`` lines with the loss falling and launches
+``flash_attn_fwd`` and ``xent_fwd``; ``torch/torch_synthetic_benchmark.py``
+with its CPU test's argv prints ``Img/sec per process``. Launches in
+``examples_launches``.
+
 Independent worlds share the card side by side to keep the script well
 inside its time: the three layout worlds; ``[zoo_dp_gloo_2rank]`` and
 ``[bert_tp_gloo_2rank]``; ``[obs_fleet_4rank]``, ``[obs_hang_autopsy]``
 and ``[nic_probe]``; ``[hvdrun]``, ``[elastic_recover]`` and
-``[agent_elastic]``; ``[driver_chaos]`` and ``[autopilot_straggler]``.
+``[agent_elastic]`` with the two ``[examples]``; ``[driver_chaos]`` and
+``[autopilot_straggler]``.
 Their checks hold whatever the load; their printed seconds are of a
 shared card and host. Every phase prints one line; any failure raises and
 exits non-zero, and nothing falls back to the CPU. The last lines are the card's name and
@@ -499,6 +512,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -703,6 +717,16 @@ DRIVER_CHAOS_AFTER = 8    # second's sleep each, and this many after the kill
 STRAGGLER_STEPS = 12      # [autopilot_straggler]: local steps a rank at least
 ROLLOUT_POISON = 12       # [rollout_canary]: injected errors on the canary
 CHAOS_TIMEOUT_S = 300     # each driver run of the self-healing phases
+# [examples]: documented scripts under hvdrun -np 1, each with the argv its
+# CPU test gives it (tests/test_examples.py:63-66 for the benchmark)
+EXAMPLES = {
+    "transformer_5d_parallel": ("native/transformer_5d_parallel.py", ()),
+    "torch_synthetic_benchmark": (
+        "torch/torch_synthetic_benchmark.py",
+        ("--batch-size", "8", "--image-size", "16", "--num-warmup-batches",
+         "1", "--num-batches-per-iter", "2", "--num-iters", "2")),
+}
+EXAMPLE_TIMEOUT_S = 300   # each launcher call
 
 
 def check(ok: bool, msg: str) -> None:
@@ -5830,11 +5854,12 @@ def phase_transport_chaos(torch, card: str) -> dict:
           f"transport_chaos_2rank: delays counted "
           f"{[x['chaos_injected'] for x in res]}")
     err = res[0]["error"] or ""
-    # which error each rank surfaces is a race inside the core (the
-    # worker's docstring): the checksum counter says the flip was caught
+    # rank 0 names the checksum; the sender's error is a race (the
+    # worker's docstring)
     classes = [chaos_worker.error_class(x["error"]) for x in res]
     check(res[0]["checksum_failures"] == 1 and all(
-        c in chaos_worker.ERROR_CLASSES[r] for r, c in enumerate(classes)),
+        c in chaos_worker.ERROR_CLASSES["port"][r]
+        for r, c in enumerate(classes)),
           f"transport_chaos_2rank: the bit flip surfaced as {res}")
     say("transport_chaos_2rank", card=card, world=2,
         delayed_frames=res[1]["chaos_injected"],
@@ -5844,6 +5869,68 @@ def phase_transport_chaos(torch, card: str) -> dict:
         launches=";".join(f"{r}:{v['flash_attention_fwd']},{v['xent_fwd']}"
                           for r, v in launches.items()),
         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def example_rank_main(out_path: str, script: str, argv) -> int:
+    """``chip_smoke.py --example-rank OUT SCRIPT [ARGS...]``, the command
+    ``[examples]`` gives ``hvdrun``: the script run as ``__main__`` with its
+    own argv, as ``python SCRIPT ARGS`` runs it, then this rank's kernel
+    launches written to OUT as JSON."""
+    import runpy
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    sys.argv = [script, *argv]
+    runpy.run_path(script, run_name="__main__")
+    with open(out_path, "w") as f:
+        json.dump({k: c.launches for k, c in counters.items()}, f)
+    return 0
+
+
+def phase_example(name: str, card: str) -> dict:
+    """[examples]: one documented script of ``horovod_tpu_torch/examples``
+    under the port's ``hvdrun -np 1`` on the card, its printed lines
+    checked. Returns its rank's launches."""
+    rel, argv = EXAMPLES[name]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(repo, "horovod_tpu_torch", "examples", rel)
+    with tempfile.TemporaryDirectory(prefix="example_") as out:
+        launches_path = os.path.join(out, "launches.json")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+             "-np", "1", sys.executable, os.path.abspath(__file__),
+             "--example-rank", launches_path, script, *argv],
+            cwd=out, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        check(r.returncode == 0, f"examples: {rel} exited {r.returncode}:\n"
+                                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        with open(launches_path) as f:
+            launches = json.load(f)
+    lines = r.stdout.splitlines()
+    if name == "transformer_5d_parallel":
+        losses = [float(m.group(1)) for m in
+                  (re.match(r"step \d+: loss (\S+) aux \S+$", x)
+                   for x in lines) if m]
+        check(len(losses) == 10 and all(map(math.isfinite, losses)),
+              f"examples: {rel} printed {lines[-12:]}")
+        check(losses[-1] < losses[0],
+              f"examples: {rel}'s loss did not fall: {losses}")
+        check(launches["flash_attention_fwd"] > 0 and
+              launches["xent_fwd"] > 0,
+              f"examples: {rel} launched {launches}")
+        fields = {"mesh": json.dumps(next(
+            (x[len("mesh: "):] for x in lines if x.startswith("mesh: ")),
+            "")), "losses": ",".join(f"{x:.4f}" for x in losses)}
+    else:
+        rate = [x for x in lines if x.startswith("Img/sec per process: ")]
+        check(len(rate) == 1, f"examples: {rel} printed {lines[-6:]}")
+        fields = {"img_sec": json.dumps(
+            rate[0][len("Img/sec per process: "):])}
+    say("examples", script=rel, card=card, seconds=secs, **fields,
+        launches=",".join(f"{k}:{v}" for k, v in launches.items() if v))
     return launches
 
 
@@ -6808,12 +6895,19 @@ def main() -> int:
     # that lose one and heal in place; and the agent transport: three
     # ranks that host agents run, rendezvousing at the NIC probe's pick,
     # losing an agent with its worker and growing back
-    hvdrun_launches, elastic_launches, agent_launches = _concurrently(
-        lambda: phase_hvdrun(torch, model.cfg, init_sd, (tokens, targets),
-                             losses),
-        lambda: phase_elastic_recover(torch, model.cfg, card),
-        lambda: phase_agent_elastic(torch, model.cfg, card, pick))
+    # beside them, the documented examples under hvdrun -np 1
+    hvdrun_launches, elastic_launches, agent_launches, *example_launches = \
+        _concurrently(
+            lambda: phase_hvdrun(torch, model.cfg, init_sd,
+                                 (tokens, targets), losses),
+            lambda: phase_elastic_recover(torch, model.cfg, card),
+            lambda: phase_agent_elastic(torch, model.cfg, card, pick),
+            *(lambda name=name: phase_example(name, card)
+              for name in EXAMPLES))
+    example_launches = dict(zip(EXAMPLES, example_launches))
     for k in kernels:
+        k["examples_launches"] = {ex: got.get(k["name"], 0)
+                                  for ex, got in example_launches.items()}
         k["hvdrun_launches"] = hvdrun_launches.get(k["name"], 0)
         k["elastic_launches"] = {r: got.get(k["name"], 0)
                                  for r, got in elastic_launches.items()}
@@ -6881,7 +6975,8 @@ def main() -> int:
             "dp_launches", "telemetry_launches", "layout_launches",
             "pp_launches", "ckpt_launches", "serve_launches",
             "obs_launches", "hvdrun_launches", "elastic_launches",
-            "agent_launches", "eager_launches", "chaos_launches")
+            "agent_launches", "eager_launches", "chaos_launches",
+            "examples_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6928,6 +7023,9 @@ if __name__ == "__main__":
         sys.exit(straggler_rounds_main(
             int(sys.argv[2]),
             float(sys.argv[3]) if len(sys.argv) > 3 else 29.0))
+    if sys.argv[1:2] == ["--example-rank"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(example_rank_main(sys.argv[2], sys.argv[3], sys.argv[4:]))
     if sys.argv[1:2] == ["--gloo-rank"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         role = sys.argv[3] if len(sys.argv) > 3 else "dp"

@@ -57,23 +57,37 @@ place when a peer dies or the world changes.
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
     NotInitializedError,
+    ccl_built,
     counters,
     cross_rank,
     cross_size,
+    cuda_built,
+    ddl_built,
     device,
     engine_state,
+    global_device_count,
+    gloo_built,
+    gloo_enabled,
     init,
     is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
     metrics_snapshot,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
+    num_devices,
     rank,
+    rocm_built,
     shutdown,
     size,
     start_timeline,
     stop_timeline,
     stragglers,
+    sycl_built,
+    tcp_core_built,
 )
 from horovod_tpu_torch.common.process_sets import (  # noqa: F401
     ProcessSet,
@@ -108,6 +122,7 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
 )
 from horovod_tpu_torch.compression import (  # noqa: F401
     Compression,
+    Compressor,
     ErrorFeedback,
 )
 from horovod_tpu_torch.ops.reduce_op import (  # noqa: F401
@@ -120,6 +135,7 @@ from horovod_tpu_torch.ops.reduce_op import (  # noqa: F401
     Sum,
 )
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXIS_ORDER,
     MeshSpec,
     build_mesh,
     dp_pp_mesh,
@@ -143,6 +159,15 @@ from horovod_tpu_torch.train import (  # noqa: F401
     make_overlap_train_step,
     pipelined_accumulate,
 )
+from horovod_tpu_torch.train.buckets import (  # noqa: F401
+    BucketPlan,
+    plan_buckets,
+)
+from horovod_tpu_torch.common.topology import (  # noqa: F401
+    MeshTopology,
+    detect_topology,
+)
+from horovod_tpu_torch.train.sync_batch_norm import SyncBatchNorm  # noqa: F401
 from horovod_tpu_torch.train.autotune import (  # noqa: F401
     AutotuneOptions,
     Plan as AutotunePlan,
@@ -171,3 +196,7 @@ from horovod_tpu_torch.train.checkpoint import Checkpointer  # noqa: F401
 from horovod_tpu_torch.train import callbacks  # noqa: F401
 # Elastic worker API (reference: horovod.elastic)
 from horovod_tpu_torch import elastic  # noqa: F401
+# the metrics, diagnostics and serving planes
+from horovod_tpu_torch import metrics  # noqa: F401
+from horovod_tpu_torch import diagnostics  # noqa: F401
+from horovod_tpu_torch import serving  # noqa: F401

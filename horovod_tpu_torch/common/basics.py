@@ -438,6 +438,19 @@ def stop_timeline() -> None:
     _require_init().timeline.stop()
 
 
+def num_devices() -> int:
+    """Cards this process can drive (``torch.cuda.device_count()``; 0
+    without one). A rank drives one of them, ``cuda:<local_rank>``."""
+    return torch.cuda.device_count()
+
+
+def global_device_count() -> int:
+    """Cards of the whole world: this host's :func:`num_devices` times the
+    host count (``cross_size``), as the hosts of one job carry the same
+    cards; this host's alone before ``init``."""
+    return num_devices() * (_state.cross_size if _state.initialized else 1)
+
+
 def backend() -> str:
     """The process group's backend, ``"nccl"`` or ``"gloo"``."""
     return _require_init().backend

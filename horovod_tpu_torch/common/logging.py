@@ -67,3 +67,12 @@ def get_logger() -> logging.Logger:
         _LOGGER = logger
     return _LOGGER
 
+
+def reset_logger() -> None:
+    """Drop the cached logger + handlers so the next ``get_logger()``
+    re-reads level/format config (tests and elastic re-init)."""
+    global _LOGGER
+    logger = logging.getLogger("horovod_tpu_torch")
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+    _LOGGER = None

@@ -27,6 +27,20 @@ import threading
 import time
 from typing import List, Optional
 
+# Reference activity names (common.h:73-105); the core's timeline names its
+# negotiation and wait phases with them (cpp/core.cc).
+NEGOTIATE_ALLREDUCE = "NEGOTIATE_ALLREDUCE"
+NEGOTIATE_ALLGATHER = "NEGOTIATE_ALLGATHER"
+NEGOTIATE_BROADCAST = "NEGOTIATE_BROADCAST"
+NEGOTIATE_ALLTOALL = "NEGOTIATE_ALLTOALL"
+WAIT_FOR_DATA = "WAIT_FOR_DATA"
+WAIT_FOR_OTHER_TENSOR_DATA = "WAIT_FOR_OTHER_TENSOR_DATA"
+QUEUE = "QUEUE"
+MEMCPY_IN_FUSION_BUFFER = "MEMCPY_IN_FUSION_BUFFER"
+COMPUTE = "COMPUTE"
+MEMCPY_OUT_FUSION_BUFFER = "MEMCPY_OUT_FUSION_BUFFER"
+
+
 def shard_path(base: str, rank: int) -> str:
     """Per-rank shard path for timeline base ``base``
     (``HVD_TPU_TIMELINE``): ``<dir>/timeline.rank<r>.json`` when base is

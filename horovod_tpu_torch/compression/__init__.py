@@ -29,6 +29,10 @@ from horovod_tpu_torch.compression.error_feedback import (  # noqa: F401
     ef_apply_one,
     init_residual,
 )
+from horovod_tpu_torch.compression.metrics import (  # noqa: F401
+    compression_ratio,
+    record_compression,
+)
 
 
 class Compression:

@@ -7,9 +7,12 @@ negotiation in steady state, tensor fusion, and the TCP ring collectives),
 compiled from the repository's sources into a library of the port's own.
 The port never loads ``horovod_tpu/core/libhvdcore.so`` and never runs
 ``make`` in ``cpp/`` (which writes ``cpp/*.o`` and that library).
-``collectives.cc`` is the port's copy beside this module (fp16 rounds to
-nearest with ties to even, as numpy, torch and gloo do; ``cpp/``'s rounds
-ties away from zero); the other sources are ``cpp/``'s.
+``collectives.cc`` and ``transport.cc`` are the port's copies beside this
+module: in ``collectives.cc`` fp16 rounds to nearest with ties to even, as
+numpy, torch and gloo do (``cpp/``'s rounds ties away from zero); in
+``transport.cc`` a send to a peer whose frame failed its checksum fails with
+the checksum message (``cpp/``'s names the broken socket). The other
+sources are ``cpp/``'s.
 
 :func:`library_path` builds at first use: one ``g++`` per source, all
 started together, with ``cpp/Makefile``'s flags and the ``g++`` on
@@ -42,7 +45,7 @@ CXXFLAGS = ("-O2", "-g", "-std=c++17", "-fPIC", "-pthread")
 SOURCES = ("transport.cc", "collectives.cc", "adasum.cc", "bayes_opt.cc",
            "core.cc", "timeline.cc", "capi.cc")
 # the sources the port keeps a copy of, beside this module
-PORT_SOURCES = ("collectives.cc",)
+PORT_SOURCES = ("transport.cc", "collectives.cc")
 
 
 def _source(name: str) -> str:

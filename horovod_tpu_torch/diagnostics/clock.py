@@ -21,8 +21,16 @@ from __future__ import annotations
 
 import os
 import time
+from typing import Tuple
 
 _ROUNDS = 5  # samples whose median is the offset
+
+
+def wall_monotonic_pair() -> Tuple[float, float]:
+    """(wall seconds, monotonic seconds) sampled back-to-back — the
+    anchor pair shard metadata embeds so monotonic event timestamps can
+    be mapped onto the wall clock."""
+    return time.time(), time.monotonic()
 
 
 def estimate_wall_offset() -> float:

@@ -41,6 +41,11 @@ def current_span() -> Optional[str]:
     return getattr(_active, "span", None)
 
 
+def set_active(span: Optional[str]) -> None:
+    """Make ``span`` the thread's active span (``None`` clears it)."""
+    _active.span = span
+
+
 @contextlib.contextmanager
 def active_span(span: str) -> Iterator[str]:
     """Scope ``span`` as the thread's active span (for log joining)."""

@@ -30,12 +30,18 @@ from horovod_tpu_torch.metrics.registry import (  # noqa: F401
     default_registry,
     render_prometheus,
 )
-from horovod_tpu_torch.metrics.engine import derived_ratios  # noqa: F401
+from horovod_tpu_torch.metrics.engine import (  # noqa: F401
+    EngineCollector,
+    derived_ratios,
+)
 from horovod_tpu_torch.metrics.timeseries import (  # noqa: F401
     StepSeriesRecorder,
     TimeSeriesRing,
     read_series,
 )
 from horovod_tpu_torch.metrics.anomaly import AnomalyEngine  # noqa: F401
-from horovod_tpu_torch.metrics.exporter import MetricsExporter  # noqa: F401
+from horovod_tpu_torch.metrics.exporter import (  # noqa: F401
+    MetricsExporter,
+    start_worker_exporter,
+)
 from horovod_tpu_torch.metrics.fleet import FleetAggregator  # noqa: F401

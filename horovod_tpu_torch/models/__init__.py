@@ -17,6 +17,7 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     param_shardings,
     prefill_chunk_paged,
     reference_greedy_decode,
+    shard_batch,
     shard_params,
     shard_state_dict,
 )

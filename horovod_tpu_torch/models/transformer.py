@@ -69,7 +69,10 @@ from horovod_tpu_torch.ops import autograd_collectives as ac
 from horovod_tpu_torch.ops.attention import attend
 from horovod_tpu_torch.ops.mesh_collectives import start_preduce
 from horovod_tpu_torch.ops.xent import fused_softmax_xent
-from horovod_tpu_torch.parallel.mesh import data_sharding_spec  # noqa: F401
+from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
+    data_sharding_spec,
+    shard_batch,
+)
 from horovod_tpu_torch.parallel.moe import moe_layer_spmd
 from horovod_tpu_torch.parallel.pipeline import gpipe
 from horovod_tpu_torch.parallel.ring_attention import ring_attention_spmd

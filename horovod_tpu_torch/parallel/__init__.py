@@ -5,6 +5,11 @@ pipeline schedules over pp (:mod:`.pipeline`) and the parallelism plan
 
 from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
+    DATA_AXIS,
+    EXPERT_AXIS,
+    PIPELINE_AXIS,
+    SEQUENCE_AXIS,
+    TENSOR_AXIS,
     Axis,
     Mesh,
     MeshSpec,

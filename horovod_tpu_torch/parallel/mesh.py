@@ -28,6 +28,10 @@ from horovod_tpu_torch.common.basics import rank, size
 AXIS_ORDER: Tuple[str, ...] = ("dp", "pp", "ep", "sp", "tp")
 
 DATA_AXIS = "dp"
+PIPELINE_AXIS = "pp"
+EXPERT_AXIS = "ep"
+SEQUENCE_AXIS = "sp"
+TENSOR_AXIS = "tp"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,7 +25,10 @@ This package owns the two cross-cutting seams:
   ``HVD_TPU_PROFILE_STEPS`` steps and stamps the planned trace path
   into the finding itself.
 
-Also here: :func:`annotate` / :func:`annotate_fn`, named ranges on the
+Also here: :func:`start_trace` / :func:`stop_trace` / :func:`trace`, one
+unmanaged trace into a directory of the caller's (``<log_dir>/trace.json``,
+a Chrome trace like a capture's, where the JAX package writes an XProf
+trace), and :func:`annotate` / :func:`annotate_fn`, named ranges on the
 trace (``torch.profiler.record_function``, where the JAX package uses
 ``jax.profiler.TraceAnnotation``); the library marks ``hvd.pack``,
 ``hvd.reduce``, ``hvd.accumulate`` and ``hvd.guard`` with them.
@@ -35,11 +38,13 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Any, Iterator, Optional
 
 from horovod_tpu_torch.profiling.manager import (ProfileManager,
                                                  default_manager,
-                                                 profile_dir)
+                                                 profile_dir, start_profiler,
+                                                 stop_profiler)
 from horovod_tpu_torch.profiling import compile_watch, memory
 
 __all__ = [
@@ -47,7 +52,7 @@ __all__ = [
     "compile_watch", "memory",
     "on_step_begin", "on_step_end", "on_anomaly",
     "recent_captures", "finalize_open_capture", "reset",
-    "annotate", "annotate_fn",
+    "start_trace", "stop_trace", "trace", "annotate", "annotate_fn",
 ]
 
 
@@ -115,6 +120,42 @@ def reset() -> None:
     _m.reset()
     memory.reset()
     compile_watch.reset_counts()
+
+
+# the trace that start_trace opened: one a process, as jax.profiler's
+_trace_lock = threading.Lock()
+_open_trace: list = []   # [(profiler, log_dir)] while one is open
+
+
+def start_trace(log_dir: str) -> None:
+    """Begin a device trace of everything this process runs until
+    :func:`stop_trace`, which writes it as ``<log_dir>/trace.json`` (the
+    device-side counterpart of ``hvd.start_timeline``).  Prefer
+    :class:`ProfileManager` for bounded, managed captures.  Raises if a
+    trace is open already."""
+    with _trace_lock:
+        if _open_trace:
+            raise RuntimeError("a trace is already open (start_trace)")
+        _open_trace.append((start_profiler(), log_dir))
+
+
+def stop_trace() -> None:
+    """End the trace :func:`start_trace` opened and write it.  Raises if
+    none is open."""
+    with _trace_lock:
+        if not _open_trace:
+            raise RuntimeError("no trace is open (start_trace)")
+        prof, log_dir = _open_trace.pop()
+    stop_profiler(prof, log_dir)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    start_trace(log_dir)
+    try:
+        yield
+    finally:
+        stop_trace()
 
 
 @contextlib.contextmanager

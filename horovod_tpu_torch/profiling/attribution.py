@@ -87,6 +87,21 @@ def _dominating(shares: Dict[str, float]) -> Optional[str]:
     return max(loss, key=loss.get)
 
 
+def from_ledger(mfu: Optional[float] = None,
+                flush_open: bool = False) -> Optional[Dict[str, Any]]:
+    """Attribution over the live ledger's cumulative account
+    (:func:`horovod_tpu_torch.metrics.goodput.snapshot`); None when the
+    ledger never ran (goodput disabled, no steps)."""
+    try:
+        from horovod_tpu_torch.metrics import goodput as _gp
+        snap = _gp.snapshot(flush_open=flush_open)
+    except Exception:
+        return None
+    if snap is None:
+        return None
+    return attribute(snap, mfu=mfu)
+
+
 def render_lines(att: Optional[Dict[str, Any]]) -> str:
     """One human-readable block (a run's summary)."""
     if not att:

@@ -244,24 +244,13 @@ class ProfileManager:
 
     # -- internals ------------------------------------------------------------
     def _start_trace(self, path: str) -> None:
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.start()
-        self._prof, self._prof_path = prof, path
+        self._prof, self._prof_path = start_profiler(), path
 
     def _stop_trace(self) -> None:
-        """Stop the open profiler (it waits for the card) and export its
-        Chrome trace into the capture directory."""
         prof, path = self._prof, self._prof_path
         self._prof = self._prof_path = None
-        if prof is None:
-            return
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(path, "trace.json"))
+        if prof is not None:
+            stop_profiler(prof, path)
 
     def _finalize(self, act: dict, last_step: Optional[int]) -> dict:
         try:
@@ -363,6 +352,27 @@ class ProfileManager:
 
 _MANAGER: Optional[ProfileManager] = None
 _MANAGER_LOCK = threading.Lock()
+
+
+def start_profiler():
+    """A started ``torch.profiler.profile`` over the CPU and, when the
+    process has a card, CUDA (CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profiler(prof, path: str) -> None:
+    """Stop ``prof`` (it waits for the card) and export its Chrome trace as
+    ``<path>/trace.json``, the file a capture's readers open."""
+    prof.stop()
+    os.makedirs(path, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(path, "trace.json"))
 
 
 def default_manager() -> ProfileManager:

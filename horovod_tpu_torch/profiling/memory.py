@@ -81,6 +81,16 @@ def _card_bytes(dev: int) -> int:
     return _CARD_BYTES[dev]
 
 
+def peak_bytes(stats: Optional[List[dict]] = None) -> Optional[int]:
+    """Max ``peak_bytes_in_use`` over the local cards of
+    :func:`device_stats` (None when nothing reports one: the CPU), what
+    ``bench.py`` records as ``hbm_peak_bytes``."""
+    stats = (device_stats() or []) if stats is None else stats
+    peaks = [s.get("peak_bytes_in_use") for s in stats
+             if isinstance(s.get("peak_bytes_in_use"), (int, float))]
+    return int(max(peaks)) if peaks else None
+
+
 class HbmGrowthDetector:
     """Window-mean growth detector for slow leaks: consecutive windows
     whose mean in-use bytes each grow by at least ``min_frac`` over the

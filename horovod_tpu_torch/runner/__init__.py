@@ -17,6 +17,9 @@ import sys
 import tempfile
 from typing import Any, Callable, List, Optional
 
+from horovod_tpu_torch.runner.hosts import HostInfo
+from horovod_tpu_torch.runner.exec_run import launch_static
+
 _WORKER_SNIPPET = """
 import os, pickle
 with open(os.environ["HVD_RUN_FN"], "rb") as f:
@@ -40,8 +43,6 @@ def run(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None,
     ``runner/launch.py:594-614`` — here via a tmpdir instead of HTTP).
     ``fn`` travels by :mod:`horovod_tpu_torch.common.payload`."""
     from horovod_tpu_torch.common import payload
-    from horovod_tpu_torch.runner.exec_run import launch_static
-    from horovod_tpu_torch.runner.hosts import HostInfo
     with tempfile.TemporaryDirectory(prefix="hvd_run_") as tmp:
         fn_path = os.path.join(tmp, "fn.pkl")
         with open(fn_path, "wb") as f:

@@ -33,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import uuid as uuidlib
 from typing import Any, Callable, Dict, List, Optional
@@ -162,17 +163,47 @@ def make_agent_exec(kv, discovery: AgentRegistryDiscovery, secret: bytes,
     overrides) travel in the command doc — the agent merges them over ITS
     task environment, so driver-side credentials never cross the network
     (the ssh launcher filters exports the same way, ``exec_run.py
-    slot_command``)."""
+    slot_command``).
+
+    A slot runs on the host's agent at its ``local_rank`` in id order, or,
+    when that agent still runs another slot's worker, on the first idle
+    one: an agent that registers after the others can sort before them,
+    and an agent runs one command at a time, so the worker of a slot that
+    growth added would otherwise wait behind a running one (the JAX
+    package's exec sends it there; its new world's rendezvous then times
+    out)."""
+    lock = threading.Lock()
+    busy: set = set()   # agents running a command this exec posted
+
+    def _claim(slot) -> Optional[str]:
+        with lock:
+            agents = discovery.agents_on(slot.hostname)
+            if len(agents) <= slot.local_rank:
+                # an agent's heartbeat went stale between assignment and
+                # launch; failing the slot restarts the generation
+                # cleanly rather than doubling two slots onto one agent
+                return None
+            idle = [a for a in agents if a not in busy]
+            if not idle:
+                return None
+            agent_id = agents[slot.local_rank] \
+                if agents[slot.local_rank] in idle else idle[0]
+            busy.add(agent_id)
+            return agent_id
 
     def _exec(slot, command: List[str], wenv: Dict[str, str],
               events) -> int:
-        agents = discovery.agents_on(slot.hostname)
-        if len(agents) <= slot.local_rank:
-            # an agent's heartbeat went stale between assignment and
-            # launch; failing the slot restarts the generation cleanly
-            # rather than doubling two slots onto one agent
+        agent_id = _claim(slot)
+        if agent_id is None:
             return 1
-        agent_id = agents[slot.local_rank]
+        try:
+            return _run_on(agent_id, slot, command, wenv, events)
+        finally:
+            with lock:
+                busy.discard(agent_id)
+
+    def _run_on(agent_id: str, slot, command: List[str],
+                wenv: Dict[str, str], events) -> int:
         uid = uuidlib.uuid4().hex
         ship = {k: v for k, v in wenv.items()
                 if isinstance(v, str) and

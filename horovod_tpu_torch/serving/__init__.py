@@ -43,6 +43,8 @@ from horovod_tpu_torch.serving.generate import (GenerateEngine, GenRequest,
 from horovod_tpu_torch.serving.router import (RequestFailed, RequestLog,
                                               RequestRejected, Router,
                                               ready_endpoints)
+from horovod_tpu_torch.serving.rollout import (RolloutConfig,
+                                               RolloutController)
 
 __all__ = [
     "DynamicBatcher", "PendingRequest", "SheddedError", "DrainingError",
@@ -51,7 +53,7 @@ __all__ = [
     "ready_endpoints", "ReplicaFleet", "LatencyWindow",
     "GenerateEngine", "GenRequest", "KVPagePlan", "PagePool",
     "SlotScheduler", "demo_gen_setup", "plan_kv_pages",
-    "request_level_generate",
+    "request_level_generate", "RolloutConfig", "RolloutController",
     "STAGES", "BurnRateSlo", "ExemplarRing", "WindowBooks",
     "close_books", "dominant_stage", "quantile", "residual_fraction",
 ]

@@ -130,6 +130,17 @@ def child(ctx: Optional[TraceContext],
     return TraceContext(ctx.trace_id, _rand_hex(8), ctx.span_id)
 
 
+def sibling(ctx: Optional[TraceContext],
+            plane: str = "generic") -> Optional[TraceContext]:
+    """A SIBLING of ``ctx``: same trace, same parent, fresh span id —
+    the identity of a hedged/retried duplicate (one logical request,
+    several concurrent attempts)."""
+    if ctx is None or not enabled():
+        return None
+    _count(plane)
+    return TraceContext(ctx.trace_id, _rand_hex(8), ctx.parent_id)
+
+
 def encode(ctx: Optional[TraceContext]) -> Optional[str]:
     return ctx.traceparent if ctx is not None else None
 

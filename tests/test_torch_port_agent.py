@@ -112,6 +112,51 @@ def test_exec_kill_deadline_bounds_teardown_wait(monkeypatch):
     assert 2.5 < took < 10
 
 
+def _cmd_env(kv, agent_id):
+    doc = kv.get("cmd", agent_id)
+    return json.loads(doc.rpartition(b"|")[0])["env"] if doc else None
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_a_grown_slot_runs_on_an_idle_agent(pkg):
+    """Agents h1@0, h1@1 and h1@3 run ranks 0-2; h1@2 registers late and
+    growth adds rank 3 (local rank 3). Sorted, h1@3 is the fourth agent,
+    but it still runs rank 2 and takes one command at a time: the port's
+    exec sends rank 3 to the idle h1@2. The JAX package's overwrites
+    h1@3's command (ROADMAP queue 3 item 28), and rank 3 never starts."""
+    mod = agent if pkg == "port" else jx_agent
+    kv = FakeKV()
+    _exec = mod.make_agent_exec(kv, mod.AgentRegistryDiscovery(kv),
+                                b"s" * 16)
+    for a in ("h1@0", "h1@1", "h1@3"):
+        _register(kv, a, "h1")
+
+    def launch(rank):
+        t = threading.Thread(target=_exec, daemon=True, args=(
+            Slot(local_rank=rank, rank=rank), ["worker"],
+            {"HOROVOD_RANK": str(rank)}, []))
+        t.start()
+        time.sleep(0.3)
+        return t
+
+    threads = [launch(r) for r in range(3)]
+    assert [_cmd_env(kv, a)["HOROVOD_RANK"]
+            for a in ("h1@0", "h1@1", "h1@3")] == ["0", "1", "2"]
+    _register(kv, "h1@2", "h1")
+    threads.append(launch(3))
+    if pkg == "port":
+        assert _cmd_env(kv, "h1@2")["HOROVOD_RANK"] == "3"
+        assert _cmd_env(kv, "h1@3")["HOROVOD_RANK"] == "2"
+    else:
+        assert _cmd_env(kv, "h1@2") is None
+        assert _cmd_env(kv, "h1@3")["HOROVOD_RANK"] == "3"
+    for a in ("h1@0", "h1@1", "h1@2", "h1@3"):
+        _register(kv, a, "h1", ts=time.time() - 1e6)   # let them go
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+
+
 def test_resolve_kv_addr_loopback():
     for mod in (agent, jx_agent):
         assert mod.resolve_kv_addr(socket.gethostname()) == "127.0.0.1"

@@ -349,9 +349,10 @@ def test_transport_chaos_matches_the_jax_core(tmp_path):
     """A ``transport.recv`` delay (counted by the core) leaves the grouped
     allreduce equal to its host reference, and a ``transport.send``
     bit_flip is caught by the wire checksum on rank 0: the same counters in
-    both packages, each rank's error of a class the core may surface there
-    (the class is a race inside the core, ROADMAP queue 3), and a checksum
-    error the same text in both."""
+    both packages, each rank's error of a class its core may surface there
+    (in the JAX core rank 0's class is a race, ROADMAP queue 3 item 22; the
+    port's names the checksum), and a checksum error the same text in
+    both."""
     import torch_port_chaos_worker as w
     build_core()
     out = {}
@@ -378,12 +379,36 @@ def test_transport_chaos_matches_the_jax_core(tmp_path):
         assert t["grouped_equal"]
         for pkg in ("jax", "port"):
             err = out[pkg][r]["error"]
-            assert w.error_class(err) in w.ERROR_CLASSES[r], (pkg, r, err)
+            assert w.error_class(err) in w.ERROR_CLASSES[pkg][r], \
+                (pkg, r, err)
         if w.error_class(t["error"]) == w.error_class(j["error"]) == \
                 "checksum":
             assert t["error"] == j["error"], r
     assert out["port"][1]["chaos_injected"] == 4
     assert out["port"][0]["checksum_failures"] == 1
+
+
+def test_port_rank0_names_the_checksum_in_every_run(tmp_path):
+    """ROADMAP queue 3 item 22: after rank 1's corrupted frame, the port's
+    rank 0 fails with the checksum message in each of three worlds, whether
+    its collective thread was receiving from rank 1 or sending to it when
+    the reader shut the socket (the JAX core names ``socket send failed``
+    in the second case)."""
+    import torch_port_chaos_worker as w
+    build_core()
+    errors = []
+    for i in range(3):
+        d = tmp_path / f"run{i}"
+        d.mkdir()
+        launch_env_world([w.__file__, "--pkg", "port", "--out", str(d)], 2,
+                         d, {"HVD_TPU_FAULT_PLAN": json.dumps(w.PLAN)},
+                         name="port", timeout=120)
+        res = [json.load(open(d / f"port.rank{r}.json")) for r in range(2)]
+        assert res[0]["checksum_failures"] == 1, (i, res)
+        assert w.error_class(res[1]["error"]) in w.ERROR_CLASSES["port"][1]
+        errors.append(res[0]["error"])
+    assert [w.error_class(e) for e in errors] == ["checksum"] * 3, errors
+    assert len(set(errors)) == 1, errors
 
 
 def test_step_kill_and_grad_nan_healed_under_the_port_driver(tmp_path):

@@ -1165,3 +1165,31 @@ def test_watchdog_fires_while_blocked_in_cuda_synchronize(dev, tmp_path):
     finally:
         wd.stop()
         exp.stop()
+
+
+def test_transformer_example_runs_its_kernels_on_the_card(dev):
+    """``horovod_tpu_torch/examples/native/transformer_5d_parallel.py``, as
+    a user runs it on the card (a world of one, bf16): its ten ``step <i>:
+    loss`` lines with the loss falling, every layer's attention through
+    ``flash_attn_fwd`` and every step's loss through ``xent_fwd``."""
+    import re
+    import subprocess
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, "horovod_tpu_torch", "examples", "native",
+                          "transformer_5d_parallel.py")
+    code = ("import runpy, sys\n"
+            "from horovod_tpu_torch.ops import attention, xent\n"
+            f"sys.argv = [{script!r}]\n"
+            f"runpy.run_path({script!r}, run_name='__main__')\n"
+            "print('launches', attention.flash_attn_fwd_cuda.launches,\n"
+            "      xent.xent_fwd_cuda.launches)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    losses = [float(x) for x in
+              re.findall(r"^step \d+: loss (\S+) aux", r.stdout, re.M)]
+    assert len(losses) == 10 and losses[-1] < losses[0], losses
+    flash, xent_n = map(int, re.search(r"^launches (\d+) (\d+)$", r.stdout,
+                                       re.M).groups())
+    assert flash >= 4 * 10 and xent_n >= 10, (flash, xent_n)

@@ -13,12 +13,15 @@ collective fails on both ranks and rank 0's checksum counter reads 1. It
 writes ``DIR/<pkg>.rank<r>.json``: the grouped result, its host reference,
 the error, and the core's counters.
 
-Which error a rank surfaces is a race inside the core, the same in both
-packages: rank 0's reader thread finds the bad checksum and shuts the
-socket (``cpp/transport.cc:450``); a collective thread then blocked in a
-receive names the checksum and peer 1, one that sends next fails with
-``socket send failed`` (``cpp/transport.cc:101``). ``ERROR_CLASSES`` lists
-what each rank may surface; :func:`error_class` names an error's class."""
+Rank 0's reader thread finds the bad checksum, records it and shuts the
+socket (``cpp/transport.cc:450``). In the JAX package's core the error a
+collective thread then surfaces is a race: one blocked in a receive names
+the checksum and peer 1, one that sends next fails with ``socket send
+failed`` (``cpp/transport.cc:101``). The port's copy of ``transport.cc``
+fails such a send with the recorded checksum message too, so its rank 0
+always names the checksum. Rank 1, the sender, finds its socket closed
+either way. ``ERROR_CLASSES`` lists what each package's rank may surface;
+:func:`error_class` names an error's class."""
 
 import argparse
 import json
@@ -41,8 +44,10 @@ PLAN = {"faults": [
      "count": 1, "min_bytes": 1024}]}
 
 
-# rank -> the classes of error the corrupted frame may surface there
-ERROR_CLASSES = {0: ("checksum", "send_failed"), 1: ("closed", "send_failed")}
+# package -> rank -> the classes of error the corrupted frame may surface
+ERROR_CLASSES = {"jax": {0: ("checksum", "send_failed"),
+                         1: ("closed", "send_failed")},
+                 "port": {0: ("checksum",), 1: ("closed", "send_failed")}}
 
 
 def error_class(err):
