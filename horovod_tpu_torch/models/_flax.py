@@ -45,6 +45,7 @@ from horovod_tpu_torch.common.tree import flatten_dotted
 from horovod_tpu_torch.models.scan_util import multi_step
 from horovod_tpu_torch.ops import autograd_collectives as ac
 from horovod_tpu_torch.ops.reduce_op import ReduceOp
+from horovod_tpu_torch.profiling import train_step
 from horovod_tpu_torch.train.overlap import (bucketed_grad_sync,
                                              jax_ordered_parameters)
 from horovod_tpu_torch.train.sync_batch_norm import SyncBatchNorm
@@ -385,9 +386,10 @@ def make_classifier_step(model: nn.Module, mesh, scan_steps: int = 1,
     """``step(model, optimizer, images, labels[, step_idx]) -> (model,
     optimizer, loss)``: forward in train mode on this rank's block, the
     fp32 ``softmax_cross_entropy(...).mean()`` over the global batch, the
-    gradient sync, one optimizer step. ``dropout_seed`` (VGG, Inception)
-    adds ``step_idx``, folded into the dropout generator with this rank's
-    data block, and chains indexed (:func:`multi_step`)."""
+    gradient sync, one optimizer step, each in its span
+    (:func:`~horovod_tpu_torch.profiling.train_step`). ``dropout_seed``
+    (VGG, Inception) adds ``step_idx``, folded into the dropout generator
+    with this rank's data block, and chains indexed (:func:`multi_step`)."""
     axes = data_axes(mesh)
     check_model(model, mesh)
     indexed = dropout_seed is not None
@@ -402,13 +404,16 @@ def make_classifier_step(model: nn.Module, mesh, scan_steps: int = 1,
             gen.manual_seed(fold_in(fold_in(dropout_seed, step_idx),
                                     data_index(mesh)))
             kw["generator"] = gen
-        logits = model(images, **kw)
-        loss = F.cross_entropy(logits.float(), labels.long())
-        for ax in axes:
-            loss = ac.mean_from(loss, ax)
-        loss.backward()
-        sync_grads(model, axes)
-        optimizer.step()
+
+        def forward():
+            logits = model(images, **kw)
+            loss = F.cross_entropy(logits.float(), labels.long())
+            for ax in axes:
+                loss = ac.mean_from(loss, ax)
+            return loss, loss
+
+        loss = train_step(forward, lambda: sync_grads(model, axes),
+                          optimizer.step)
         return model, optimizer, loss.detach()
 
     chain = multi_step(one_step, n_carry=2, scan_steps=scan_steps,

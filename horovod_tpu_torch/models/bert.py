@@ -46,6 +46,7 @@ from horovod_tpu_torch.models._flax import (Dense, Embed, LayerNorm,
 from horovod_tpu_torch.models.scan_util import multi_step
 from horovod_tpu_torch.ops import autograd_collectives as ac
 from horovod_tpu_torch.ops.mesh_collectives import preduce
+from horovod_tpu_torch.profiling import train_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,9 +334,10 @@ def make_bert_train_step(model: Bert, mesh=None, scan_steps: int = 1):
     """``step(model, optimizer, batch) -> (model, optimizer, loss)``: the
     forward on this rank's rows (``shard_batch``), :func:`pretrain_loss`
     over the global batch, the gradient summed over dp (bucketed), one
-    optimizer step, in place. ``batch`` holds ``input_ids``,
-    ``token_type_ids``, ``attention_mask``, ``mlm_labels``, ``mlm_mask``
-    and ``nsp_labels``. ``model`` must be built with ``mesh``.
+    optimizer step, in place, each phase in its span
+    (:func:`~horovod_tpu_torch.profiling.train_step`). ``batch`` holds
+    ``input_ids``, ``token_type_ids``, ``attention_mask``, ``mlm_labels``,
+    ``mlm_mask`` and ``nsp_labels``. ``model`` must be built with ``mesh``.
     ``scan_steps > 1`` chains that many steps on the SAME batch."""
     if getattr(model, "mesh", None) is not mesh:
         raise ValueError(f"the model was built with the mesh {model.mesh} "
@@ -345,14 +347,17 @@ def make_bert_train_step(model: Bert, mesh=None, scan_steps: int = 1):
 
     def one_step(model, optimizer, batch):
         optimizer.zero_grad(set_to_none=True)
-        mlm, nsp = model(batch["input_ids"], batch["token_type_ids"],
-                         batch["attention_mask"])
-        loss = pretrain_loss(mlm, nsp, batch["mlm_labels"],
-                             batch["mlm_mask"], batch["nsp_labels"], mesh,
-                             model.cfg.vocab_size)
-        loss.backward()
-        sync_grads(model, axes)
-        optimizer.step()
+
+        def forward():
+            mlm, nsp = model(batch["input_ids"], batch["token_type_ids"],
+                             batch["attention_mask"])
+            loss = pretrain_loss(mlm, nsp, batch["mlm_labels"],
+                                 batch["mlm_mask"], batch["nsp_labels"], mesh,
+                                 model.cfg.vocab_size)
+            return loss, loss
+
+        loss = train_step(forward, lambda: sync_grads(model, axes),
+                          optimizer.step)
         return model, optimizer, loss.detach()
 
     return multi_step(one_step, n_carry=2, scan_steps=scan_steps)

@@ -76,6 +76,7 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
 from horovod_tpu_torch.parallel.moe import moe_layer_spmd
 from horovod_tpu_torch.parallel.pipeline import gpipe
 from horovod_tpu_torch.parallel.ring_attention import ring_attention_spmd
+from horovod_tpu_torch.profiling import train_step
 
 DATA_AXES = ("dp", "ep", "sp")
 
@@ -593,8 +594,9 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     loss, aux)``: forward, backward, the gradient sync of
     :func:`_grad_sync` and one optimizer step on this rank's shards,
     updating the parameters and the optimizer state in place (the JAX step
-    donates them). Tokens/targets are this rank's block; loss and aux are
-    the layout's. ``scan_steps > 1`` chains that many steps on the SAME
+    donates them), each phase in its span (:func:`~horovod_tpu_torch.
+    profiling.train_step`). Tokens/targets are this rank's block; loss and
+    aux are the layout's. ``scan_steps > 1`` chains that many steps on the SAME
     batch (:func:`scan_util.multi_step`); loss and aux are the last
     step's."""
     pipelined = _stages(mesh) > 1
@@ -602,20 +604,26 @@ def make_train_step(cfg: TransformerConfig, mesh=None,
     def one_step(model: Transformer, optimizer, tokens, targets):
         _check_model(model, cfg, mesh)
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = forward_loss_spmd(model, tokens, targets, mesh)
-        (loss + 0.01 * aux).backward()
-        if pipelined:
-            # a stage that did not use a leaf (ln_f before the last) still
-            # takes part in its sum over pp
-            for p in model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        named = {k: p for k, p in model.named_parameters()
-                 if p.grad is not None}
-        synced = _grad_sync({k: p.grad for k, p in named.items()}, cfg, mesh)
-        for k, p in named.items():
-            p.grad = synced[k]
-        optimizer.step()
+
+        def forward():
+            loss, aux = forward_loss_spmd(model, tokens, targets, mesh)
+            return loss + 0.01 * aux, (loss, aux)
+
+        def sync():
+            if pipelined:
+                # a stage that did not use a leaf (ln_f before the last)
+                # still takes part in its sum over pp
+                for p in model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            named = {k: p for k, p in model.named_parameters()
+                     if p.grad is not None}
+            synced = _grad_sync({k: p.grad for k, p in named.items()}, cfg,
+                                mesh)
+            for k, p in named.items():
+                p.grad = synced[k]
+
+        loss, aux = train_step(forward, sync, optimizer.step)
         return model, optimizer, loss.detach(), aux.detach()
 
     return multi_step(one_step, n_carry=2, scan_steps=scan_steps)

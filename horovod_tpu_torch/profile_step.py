@@ -20,8 +20,10 @@ profiler, the device time per step summed over the kernels (NCCL's
 kernels run on their own stream, so with ``--dp`` the sum can exceed the
 busy time by their overlap), the device's idle share of the wall time,
 kernel launches per step, the device time of the kernels issued inside the
-library's marked ranges (``hvd.pack``: bucket packing; ``hvd.reduce``: the
-collectives, with the quantize kernels and copies of the int8 path;
+library's marked ranges (the step's phases ``hvd.step``, ``hvd.forward``,
+``hvd.backward``, ``hvd.sync_grads`` and ``hvd.optimizer``; ``hvd.pack``:
+bucket packing; ``hvd.reduce``: issuing the collectives, with the quantize
+kernels of the int8 path; ``hvd.unpack``: each bucket's wait and unpack;
 ``hvd.accumulate``: the microbatch sums; ``hvd.guard``: the guard's
 verdict), and the kernels ranked by device time, each with its share and
 the group it belongs to (the port's own kernels, NCCL, ``torch.cat``,
@@ -157,7 +159,8 @@ def profile(steps: int, optimizer: str = "adamw", dp: bool = False,
         g = kernel_group(name)
         groups[g] = groups.get(g, 0.0) + t
     # device time of the kernels issued inside the library's marked ranges
-    # (hvd.pack, hvd.reduce, hvd.accumulate, hvd.guard), whatever their name
+    # (the step's phases, hvd.pack, hvd.reduce, hvd.unpack, hvd.accumulate,
+    # hvd.guard), whatever their name
     ranges: dict = {}
     for e in prof.events():
         if e.name.startswith("hvd.") and \

@@ -28,18 +28,31 @@ This package owns the two cross-cutting seams:
 Also here: :func:`start_trace` / :func:`stop_trace` / :func:`trace`, one
 unmanaged trace into a directory of the caller's (``<log_dir>/trace.json``,
 a Chrome trace like a capture's, where the JAX package writes an XProf
-trace), and :func:`annotate` / :func:`annotate_fn`, named ranges on the
-trace (``torch.profiler.record_function``, where the JAX package uses
-``jax.profiler.TraceAnnotation``); the library marks ``hvd.pack``,
-``hvd.reduce``, ``hvd.accumulate`` and ``hvd.guard`` with them.
+trace), and :func:`annotate` / :func:`annotate_fn`, named spans
+(``torch.profiler.record_function`` while a profiler runs, where the JAX
+package uses ``jax.profiler.TraceAnnotation``). A span costs one call and
+one flag test when neither a profiler nor :func:`record_spans` is on.
+The library marks with them the phases of every train step
+(:func:`train_step`: ``hvd.step`` around ``hvd.forward``,
+``hvd.backward``, ``hvd.sync_grads`` and ``hvd.optimizer``), each
+gradient bucket's ``hvd.pack``, ``hvd.reduce`` (issuing its collective) and
+``hvd.unpack`` (its wait and unpack), the microbatch sums
+(``hvd.accumulate``) and the guard's verdict (``hvd.guard``).
+:func:`record_spans` keeps the spans in memory on the host clock, without
+a profiler.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import threading
-from typing import Any, Iterator, Optional
+import time
+from typing import Any, Callable, Iterator, List, NamedTuple, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from horovod_tpu_torch.profiling.manager import (ProfileManager,
                                                  default_manager,
@@ -53,6 +66,7 @@ __all__ = [
     "on_step_begin", "on_step_end", "on_anomaly",
     "recent_captures", "finalize_open_capture", "reset",
     "start_trace", "stop_trace", "trace", "annotate", "annotate_fn",
+    "record_spans", "Span", "SpanRecorder", "train_step",
 ]
 
 
@@ -158,12 +172,137 @@ def trace(log_dir: str) -> Iterator[None]:
         stop_trace()
 
 
+# -- spans: the step's phases on the profiler's clock, or kept in memory -------
+
+class Span(NamedTuple):
+    """One closed span: ``parent`` is the ``id`` of the span that was open
+    on the same thread when it opened (None at the top), ``start_ns`` and
+    ``end_ns`` are ``time.monotonic_ns()`` readings."""
+    id: int
+    name: str
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+class SpanRecorder:
+    """The spans :func:`record_spans` keeps: at most ``limit``, the rest
+    counted in ``dropped``. ``anchor`` is a ``(wall s, monotonic s)`` pair
+    read when recording began (:func:`~horovod_tpu_torch.diagnostics.clock.
+    wall_monotonic_pair`): a span's wall time is ``anchor[0] + start_ns /
+    1e9 - anchor[1]``. ``spans`` is filled when the recording closes."""
+
+    def __init__(self, limit: int):
+        from horovod_tpu_torch.diagnostics.clock import wall_monotonic_pair
+        self.limit, self.dropped = limit, 0
+        self.anchor = wall_monotonic_pair()
+        self.spans: List[Span] = []
+        self._kept: List[Span] = []
+        self._lock = threading.Lock()
+        self._ids = itertools.count()
+        self._stacks = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._stacks, "ids", None)
+        if stack is None:
+            stack = self._stacks.ids = []
+        return stack
+
+    def _keep(self, span: Span) -> None:
+        with self._lock:
+            if len(self._kept) < self.limit:
+                self._kept.append(span)
+            else:
+                self.dropped += 1
+
+
+_recorder: Optional[SpanRecorder] = None
+_recorder_lock = threading.Lock()
+
+
+class _Span:
+    __slots__ = ("name", "rec", "range", "id", "parent", "start")
+
+    def __init__(self, name: str, rec: Optional[SpanRecorder]):
+        self.name, self.rec, self.range = name, rec, None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = record_function(self.name)
+            self.range.__enter__()
+        if self.rec is not None:
+            stack = self.rec._stack()
+            self.parent = stack[-1] if stack else None
+            self.id = next(self.rec._ids)
+            stack.append(self.id)
+            self.start = time.monotonic_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rec is not None:
+            end = time.monotonic_ns()
+            self.rec._stack().pop()
+            self.rec._keep(Span(self.id, self.name, self.parent,
+                                threading.get_ident(), self.start, end))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A named span, for ``with``: a ``torch.profiler.record_function``
+    range while a profiler runs (on the device trace's clock, booking the
+    kernels its thread launches), kept by the open :func:`record_spans`
+    too. With neither on it is one shared no-op context."""
+    rec = _recorder
+    if rec is None and not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, rec)
+
+
 @contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named range on the trace (NVTX-range analog)."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
+def record_spans(limit: int = 1 << 16) -> Iterator[SpanRecorder]:
+    """Keep every span the process opens, on any thread, while the block
+    runs; the yielded :class:`SpanRecorder` holds them (at most ``limit``,
+    the rest counted) once it closes. One recording at a time."""
+    global _recorder
+    rec = SpanRecorder(limit)
+    with _recorder_lock:
+        if _recorder is not None:
+            raise RuntimeError("spans are already being recorded "
+                               "(record_spans)")
+        _recorder = rec
+    try:
+        yield rec
+    finally:
+        with _recorder_lock:
+            _recorder = None
+        with rec._lock:
+            rec.spans = sorted(rec._kept, key=lambda s: s.start_ns)
+            rec._kept = []
+
+
+def train_step(forward: Callable[[], Any], sync: Callable[[], None],
+               update: Callable[[], Any]):
+    """One optimizer step in its spans, the train-step factories' shared
+    frame: ``hvd.step`` around ``hvd.forward`` (``forward() -> (objective,
+    out)``, the model and the loss), ``hvd.backward``
+    (``objective.backward()``), ``hvd.sync_grads`` (``sync()``) and
+    ``hvd.optimizer`` (``update()``). Returns ``out``."""
+    with annotate("hvd.step"):
+        with annotate("hvd.forward"):
+            objective, out = forward()
+        with annotate("hvd.backward"):
+            objective.backward()
+        with annotate("hvd.sync_grads"):
+            sync()
+        with annotate("hvd.optimizer"):
+            update()
+    return out
 
 
 def annotate_fn(name: Optional[str] = None):

@@ -56,11 +56,11 @@ from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from horovod_tpu_torch.checkpoint.format import tensor_storage
 from horovod_tpu_torch.common.config import env_bool, env_float, env_int
 from horovod_tpu_torch.common.tree import nest_dotted, tree_leaves
+from horovod_tpu_torch.profiling import annotate
 
 log = logging.getLogger("horovod_tpu_torch")
 
@@ -312,7 +312,7 @@ def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec,
         # on the synchronized gradients, as the JAX steps inject
         # (horovod_tpu/train/overlap.py:366, pipeline.py:409)
         apply_injection([p.grad for p in params], code, factor)
-    with record_function("hvd.guard"):
+    with annotate("hvd.guard"):
         ok = grads_ok([p.grad for p in params], spec, pp_axis)
         if _takes_found_inf(optimizer):
             optimizer.found_inf = (~ok).float()
@@ -324,7 +324,7 @@ def guarded_apply(optimizer: torch.optim.Optimizer, spec: GuardSpec,
     finally:
         optimizer.__dict__.pop("found_inf", None)
     if saved is not None:
-        with record_function("hvd.guard"):
+        with annotate("hvd.guard"):
             saved.select(ok)
     return Verdict(ok, saved)
 

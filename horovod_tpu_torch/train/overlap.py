@@ -30,13 +30,13 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from horovod_tpu_torch.common.tree import jax_key, tree_flatten
 from horovod_tpu_torch.ops.mesh_collectives import (
     Pending, phier_allreduce, preduce, pring_allreduce, start_preduce,
     start_preduce_quantized)
 from horovod_tpu_torch.ops.reduce_op import Average, ReduceOp, Sum
+from horovod_tpu_torch.profiling import annotate
 from horovod_tpu_torch.train.buckets import (BucketPlan, pack, plan_buckets,
                                              unpack)
 from horovod_tpu_torch.train.guard import (GuardedStep, guarded_apply,
@@ -83,16 +83,17 @@ class BucketReducer:
         self.floor = resolve_small_floor(small_floor)
 
     def start(self, leaves: Sequence[torch.Tensor], bucket) -> Pending:
-        """Pack ``bucket``'s leaves and issue their reduction. The work is
-        marked ``hvd.pack`` and ``hvd.reduce`` (finishing included) for
-        the profiler."""
+        """Pack ``bucket``'s leaves and issue their reduction, in the spans
+        ``hvd.pack`` and ``hvd.reduce``; the caller marks the wait and the
+        unpack ``hvd.unpack`` (where the ring and hierarchical paths do
+        their work)."""
         small = self.floor > 0 and bucket.nbytes < self.floor
         dense = small or (self.algo == "psum" and self.compression is None)
         quantized = not dense and self.algo == "psum"
-        with record_function("hvd.pack"):
+        with annotate("hvd.pack"):
             vec = pack(leaves, bucket,
                        pad_to=self.axis.size if quantized else 1)
-        with record_function("hvd.reduce"):
+        with annotate("hvd.reduce"):
             if dense:
                 return start_preduce(vec, self.axis, self.op, inplace=True)
             if quantized:
@@ -124,8 +125,9 @@ def bucketed_grad_sync(grads, axis, plan: Optional[BucketPlan] = None,
     ``topology`` defaults to :func:`~horovod_tpu_torch.common.topology.
     detect_topology` over the axis size, and a flat one degrades to psum).
     Buckets under ``small_floor`` bytes take one dense psum. All buckets
-    are issued before the first is waited on. Quantized, ring and
-    hierarchical paths support Sum/Average only."""
+    are issued before the first is waited on; each bucket's wait and
+    unpack is the span ``hvd.unpack``. Quantized, ring and hierarchical
+    paths support Sum/Average only."""
     leaves, unflatten = tree_flatten(grads)
     if not leaves:
         return grads
@@ -136,8 +138,10 @@ def bucketed_grad_sync(grads, axis, plan: Optional[BucketPlan] = None,
     pending = [reducer.start(leaves, b) for b in plan.buckets]
     out: list = [None] * len(leaves)
     for bucket, p in zip(plan.buckets, pending):
-        for i, leaf in zip(bucket.indices, unpack(p.wait(), bucket, leaves)):
-            out[i] = leaf
+        with annotate("hvd.unpack"):
+            for i, leaf in zip(bucket.indices,
+                               unpack(p.wait(), bucket, leaves)):
+                out[i] = leaf
     return unflatten(out)
 
 
@@ -217,8 +221,11 @@ def jax_ordered_parameters(model: torch.nn.Module):
 def _accumulate(loss_fn, model, microbatches, reducer: Optional[BucketReducer],
                 plan: BucketPlan, params, overlap: bool,
                 microbatch_mean: bool):
-    """The microbatch loop: ``(mean loss, summed reduced bucket vectors)``
-    with the microbatch mean applied. ``reducer=None`` skips the sync."""
+    """The microbatch loop: ``(mean loss, reduced gradient leaves)``, each
+    leaf at ``params``' index, with the microbatch mean applied.
+    ``reducer=None`` skips the sync. Each microbatch's forward and
+    backward are the spans ``hvd.forward`` and ``hvd.backward``, what
+    follows its backward ``hvd.sync_grads`` (the last one unpacks)."""
     n_micro = microbatches[0].shape[0]
     cur: list = []
 
@@ -234,12 +241,30 @@ def _accumulate(loss_fn, model, microbatches, reducer: Optional[BucketReducer],
 
     def add(pending):
         for b, p in enumerate(pending):
-            with record_function("hvd.reduce"):
+            with annotate("hvd.unpack"):
                 v = p.wait()
-            with record_function("hvd.accumulate"):
+            with annotate("hvd.accumulate"):
                 acc[b] = v if acc[b] is None else acc[b] + v
 
     losses = []
+
+    def finish(last):
+        """The last buckets in flight, the microbatch means, the leaves."""
+        if last is not None:
+            add(last)
+        mean_loss = (losses[0] + torch.stack(losses[1:]).sum() if n_micro > 1
+                     else losses[0]) / n_micro
+        vecs = acc
+        if microbatch_mean and n_micro > 1:
+            with annotate("hvd.accumulate"):
+                vecs = [v * (1.0 / n_micro) for v in acc]
+        out: list = [None] * len(params)
+        for bucket, vec in zip(plan.buckets, vecs):
+            with annotate("hvd.unpack"):
+                for i, g in zip(bucket.indices, unpack(vec, bucket, params)):
+                    out[i] = g
+        return mean_loss, out
+
     in_flight = None
     try:
         for k in range(n_micro):
@@ -248,29 +273,27 @@ def _accumulate(loss_fn, model, microbatches, reducer: Optional[BucketReducer],
             cur = [None] * plan.num_buckets
             if hooks is not None:
                 hooks.reset()
-            loss = loss_fn(model, tuple(x[k] for x in microbatches))
-            loss.backward()
+            with annotate("hvd.forward"):
+                loss = loss_fn(model, tuple(x[k] for x in microbatches))
+            with annotate("hvd.backward"):
+                loss.backward()
             losses.append(loss.detach())
-            if hooks is not None:
-                hooks.launch_rest()
-                if in_flight is not None:
-                    add(in_flight)      # k−1's buckets, in flight until now
-                in_flight = cur
-            else:
-                for b in range(plan.num_buckets):
-                    launch(b)
-                add(cur)
-        if in_flight is not None:
-            add(in_flight)
+            with annotate("hvd.sync_grads"):
+                if hooks is not None:
+                    hooks.launch_rest()
+                    if in_flight is not None:
+                        add(in_flight)  # k−1's buckets, in flight until now
+                    in_flight = cur
+                else:
+                    for b in range(plan.num_buckets):
+                        launch(b)
+                    add(cur)
+                if k == n_micro - 1:
+                    result = finish(in_flight)
     finally:
         if hooks is not None:
             hooks.remove()
-    mean_loss = (losses[0] + torch.stack(losses[1:]).sum() if n_micro > 1
-                 else losses[0]) / n_micro
-    if microbatch_mean and n_micro > 1:
-        with record_function("hvd.accumulate"):
-            acc = [v * (1.0 / n_micro) for v in acc]
-    return mean_loss, acc
+    return result
 
 
 def pipelined_accumulate(loss_fn: Callable, model: torch.nn.Module,
@@ -307,14 +330,11 @@ def pipelined_accumulate(loss_fn: Callable, model: torch.nn.Module,
         plan = plan_buckets(params, bucket_bytes)
     reducer = (BucketReducer(axis, op, compression, ring, algorithm,
                              topology, small_floor) if sync else None)
-    loss, acc = _accumulate(loss_fn, model, tuple(microbatches), reducer,
-                            plan, params, overlap, microbatch_mean)
-    grads = {}
-    for bucket, vec in zip(plan.buckets, acc):
-        for i, g in zip(bucket.indices, unpack(vec, bucket, params)):
-            params[i].grad = g
-            grads[names[i]] = g
-    return loss, {n: grads[n] for n in names}
+    loss, grads = _accumulate(loss_fn, model, tuple(microbatches), reducer,
+                              plan, params, overlap, microbatch_mean)
+    for p, g in zip(params, grads):
+        p.grad = g
+    return loss, dict(zip(names, grads))
 
 
 def make_overlap_train_step(loss_fn: Callable, mesh, axis_name: str = "dp",
@@ -334,7 +354,10 @@ def make_overlap_train_step(loss_fn: Callable, mesh, axis_name: str = "dp",
     through :func:`pipelined_accumulate` along ``mesh.axis(axis_name)``,
     then ``optimizer`` (a torch optimizer over the model's parameters)
     steps, and the returned loss is the microbatch mean averaged over the
-    axis. The keyword knobs are :func:`pipelined_accumulate`'s.
+    axis. The keyword knobs are :func:`pipelined_accumulate`'s. The step
+    is the span ``hvd.step``: each microbatch's ``hvd.forward``,
+    ``hvd.backward`` (where the overlapped buckets are packed and issued)
+    and ``hvd.sync_grads``, then ``hvd.optimizer``.
 
     ``guard`` (:mod:`horovod_tpu_torch.train.guard`): ``None`` reads
     ``HVD_TPU_GUARD`` (default on: non-finite or over-norm gradients skip
@@ -370,13 +393,16 @@ def make_overlap_train_step(loss_fn: Callable, mesh, axis_name: str = "dp",
     def _loss_and_step(model, optimizer, batch):
         micro = tuple(x.reshape((n_micro, x.shape[0] // n_micro)
                                 + tuple(x.shape[1:])) for x in batch)
-        loss, _ = pipelined_accumulate(loss_fn, model, micro, **kw)
-        if gspec.enabled:
-            ok = guarded_apply(optimizer, gspec)
-        else:
-            optimizer.step()
-            ok = True
-        return model, optimizer, preduce(loss, axis, Average), ok
+        with annotate("hvd.step"):
+            loss, _ = pipelined_accumulate(loss_fn, model, micro, **kw)
+            with annotate("hvd.optimizer"):
+                if gspec.enabled:
+                    ok = guarded_apply(optimizer, gspec)
+                else:
+                    optimizer.step()
+                    ok = True
+            loss = preduce(loss, axis, Average)
+        return model, optimizer, loss, ok
 
     if not gspec.enabled:
         def step(model, optimizer, batch):
