@@ -17,6 +17,14 @@ Kernel launch counters are zeroed just before the main path and read just
 after: every kernel must have run there, four attention launches (one per
 layer) and one cross-entropy launch per forward.
 
+``[bn]`` holds the batch norm kernels the port adds (``csrc/batch_norm.cu``,
+no Pallas kernel behind them) to their plain stages at every ResNet-50
+layer shape at batch 256 (sums against fp64 sums; y, the statistics, the
+running averages and dx to the bit from the kernels' own sums) and
+through the zoo's layer at the stem, then times them beside the five-pass
+bound, the plain stages and cuDNN's ``torch.batch_norm``. ``[zoo]`` checks
+that every step of a model runs four of them for each of its batch norms.
+
 The int8 error-feedback slice adds six kernels (``csrc/quantize.cu``), each
 held against its plain version at the flagship embedding's [64000, 256],
 at a ragged [33, 128], at block 100 and on an all-zero row (the quantizers
@@ -899,6 +907,221 @@ def phase_xent(torch, xent, dev):
                 replaces="horovod_tpu/ops/pallas_xent.py:43",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib)
+
+
+# ResNet-50's batch norms at 224: (channels, side, layers), 53 layers,
+# 11,113,984 elements an image (perfbench/bytes.py counts the same)
+BN_RESNET50 = ((64, 112, 1), (64, 56, 6), (256, 56, 4), (128, 56, 1),
+               (128, 28, 7), (512, 28, 5), (256, 28, 1), (256, 14, 11),
+               (1024, 14, 7), (512, 14, 1), (512, 7, 5), (2048, 7, 4))
+BN_BATCH = 256
+BN_TIMED = {"stem": (64, 112), "stage1": (256, 56), "stage4": (2048, 7)}
+# the kernels' fp64 sums against fp64 sums of the same values, as a share
+# of Σ|term|: an element's term is off by at most a few fp32 roundings
+# (x̂ is formed in fp32), and a term left out or a channel mixed up moves
+# a sum by far more than this
+BN_SUM_TOL = 1e-6
+
+
+def bn_inputs(torch, C, side, dev, g, n=BN_BATCH):
+    """bf16 channels_last activations of a ResNet-50 layer with a spread and
+    an offset of their own in every channel, a cotangent that leans on x
+    (so that neither Σdy nor Σdy·x̂ is near 0), and a scale and bias away
+    from 1 and 0: ``(x, dy, scale, bias)``."""
+    ch = dict(device=dev, dtype=torch.float32)
+    spread = torch.linspace(0.5, 2.0, C, **ch).view(1, C, 1, 1)
+    ramp = torch.linspace(-2.0, 2.0, C, **ch).view(1, C, 1, 1)
+    lean = torch.linspace(-1.0, 1.5, C, **ch).view(1, C, 1, 1)
+    x = torch.randn(n, C, side, side, generator=g, device=dev) * 1.5 \
+        * spread + 0.3 + ramp
+    dy = x * lean + 0.5 * torch.randn(n, C, side, side, generator=g,
+                                      device=dev)
+    x, dy = (t.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last) for t in (x, dy))
+    scale = torch.rand(C, generator=g, device=dev) + 0.5
+    bias = torch.randn(C, generator=g, device=dev)
+    return x, dy, scale, bias
+
+
+def bn_check(torch, bn, x, dy, scale, bias) -> dict:
+    """The four kernels at one layer against the plain stages: the sums
+    within BN_SUM_TOL of fp64 sums of the same values, and from the
+    kernels' own sums y, mean, var, rstd, the running averages and dx to
+    the bit."""
+    C, f64 = x.shape[1], torch.float64
+
+    def off(got, want, bound):
+        return float(((got - want).abs() / bound.clamp_min(1e-30)).max())
+
+    st = bn.stats_cuda(x, 1)
+    want = bn.plain_stats(x.to(f64), 1)
+    ab = bn.plain_stats(x.to(f64).abs(), 1)
+    e_stats = max(off(st[:C], want[:C], ab[:C]),
+                  off(st[C:2 * C], want[C:2 * C], ab[C:2 * C]))
+    runs = [bn.Running(torch.linspace(-1, 1, C, device=x.device),
+                       torch.linspace(0.5, 2, C, device=x.device), 0.9, 0.1,
+                       False) for _ in range(2)]
+    y, mean, var, rstd = bn.normalize_cuda(x, st, scale, bias, 1e-5, 1,
+                                           x.dtype, runs[0])
+    ref = bn.plain_normalize(x, st, scale, bias, 1e-5, 1, x.dtype)
+    bn.plain_update_running(runs[1], ref[1], ref[2], st[2 * C].float())
+    same_fwd = all(torch.equal(a, b) for a, b in zip(
+        (y, mean, var, rstd, runs[0].mean, runs[0].var),
+        (*ref, runs[1].mean, runs[1].var)))
+    del y, ref
+    sums = bn.grad_sums_cuda(x, dy, mean, rstd, 1)
+    xc = x.to(f64) - mean.to(f64).view(1, C, 1, 1)
+    zero, r64 = torch.zeros_like(mean, dtype=f64), rstd.to(f64)
+    want = bn.plain_grad_sums(xc, dy.to(f64), zero, r64, 1)
+    ab = bn.plain_grad_sums(xc.abs(), dy.to(f64).abs(), zero, r64, 1)
+    del xc
+    e_grad = max(off(sums[:C], want[:C], ab[:C]),
+                 off(sums[C:], want[C:], ab[C:]))
+    dx = bn.grad_input_cuda(x, dy, mean, rstd, scale, sums, st[2 * C], 1)
+    dx_ref = bn.plain_grad_input(x, dy, mean, rstd, scale, sums, st[2 * C], 1)
+    same_dx = torch.equal(dx, dx_ref)
+    # how far Σdy and Σdy·x̂ are from 0, as a share of Σ|term| (median over
+    # the channels): sums near 0 would not show a term left out
+    lean = min(float((want[:C].abs() / ab[:C]).median()),
+               float((want[C:].abs() / ab[C:]).median()))
+    return dict(stats_off=e_stats, grad_sums_off=e_grad,
+                y_stats_running_same_bits=same_fwd, dx_same_bits=same_dx,
+                grad_sum_share=lean, n=float(st[2 * C]))
+
+
+def phase_bn(torch, dev):
+    """csrc/batch_norm.cu at ResNet-50's shapes (bf16, channels_last, batch
+    256): at every layer shape each kernel held to its plain stage
+    (:func:`bn_check`), the zoo layer's four launches and its y and dx to
+    the bit of the plain stages fed its kernels' sums; each stage's kernel
+    time beside the bound of the five passes the layer needs (x read and y
+    written forward, x and dy read and dx written backward, at 3.35 TB/s),
+    the plain stages' time and cuDNN's batch norm (``torch.batch_norm``,
+    which the port never calls); every layer shape's time, summed to a
+    step's batch norm time. Registers and spills from ptxas."""
+    from horovod_tpu_torch.models._flax import BatchNorm
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import batch_norm as bn
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    # the zoo layer at the stem: its four launches, and y and dx as the
+    # plain stages give them from the sums its kernels took
+    x, dy, scale, bias = bn_inputs(torch, 64, 112, dev, g)
+    m = BatchNorm(64, dtype=bf, device=dev)
+    with torch.no_grad():
+        m.scale.copy_(scale)
+        m.bias.copy_(bias)
+    before = bn.launch_kernel.launches
+    xs = x.clone().requires_grad_()
+    y = m(xs)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    launches = bn.launch_kernel.launches - before
+    st = bn.stats_cuda(x, 1)
+    ref = bn.plain_normalize(x, st, scale, bias, 1e-5, 1, bf)
+    sums = bn.grad_sums_cuda(x, dy, ref[1], ref[3], 1)
+    dx_ref = bn.plain_grad_input(x, dy, ref[1], ref[3], scale, sums,
+                                 st[128], 1)
+    same = torch.equal(y, ref[0]) and torch.equal(xs.grad, dx_ref)
+    say("bn", check="zoo layer 256x64x112x112 bf16 channels_last",
+        launches=launches, y_dx_same_bits=same)
+    check(launches == 4, f"the zoo BN layer launched {launches}, not 4")
+    check(same, "the zoo BN layer's y or dx differs from the plain stages "
+                "fed its kernels' sums")
+    del xs, y, ref, dx_ref, m
+
+    timed = {}
+    model_ms = 0.0
+    for C, side, layers in BN_RESNET50:
+        x, dy, scale, bias = bn_inputs(torch, C, side, dev, g)
+        got = bn_check(torch, bn, x, dy, scale, bias)
+        say("bn", check=f"{BN_BATCH}x{C}x{side}x{side}", **got,
+            tol=BN_SUM_TOL)
+        check(got["stats_off"] <= BN_SUM_TOL
+              and got["grad_sums_off"] <= BN_SUM_TOL,
+              f"batch norm kernels' sums at C {C}, side {side}: {got}")
+        check(got["y_stats_running_same_bits"] and got["dx_same_bits"],
+              f"batch norm kernels differ from the plain stages at C {C}, "
+              f"side {side}: {got}")
+        check(got["grad_sum_share"] >= 100 * BN_SUM_TOL,
+              f"the cotangent's sums at C {C}, side {side} are too near 0 "
+              f"to show a fault: {got}")
+        run = bn.Running(torch.zeros(C, device=dev), torch.ones(C, device=dev),
+                         0.9, 0.1, False)
+        st = bn.stats_cuda(x, 1)
+        _, mean, _, rstd = bn.normalize_cuda(x, st, scale, bias, 1e-5, 1, bf,
+                                             run)
+
+        def fwd():
+            bn.normalize_cuda(x, bn.stats_cuda(x, 1), scale, bias, 1e-5, 1,
+                              bf, run)
+
+        def bwd():
+            bn.grad_input_cuda(x, dy, mean, rstd, scale,
+                               bn.grad_sums_cuda(x, dy, mean, rstd, 1),
+                               st[2 * C], 1)
+
+        f_ms, b_ms = time_ms(fwd), time_ms(bwd)
+        model_ms += layers * (f_ms + b_ms)
+        nbytes = x.numel() * 2
+        name = next((k for k, v in BN_TIMED.items() if v == (C, side)), None)
+        if name is None:
+            say("bn", shape=f"{BN_BATCH}x{C}x{side}x{side}", layers=layers,
+                fwd_ms=f_ms, bwd_ms=b_ms,
+                bound_ms=5 * nbytes / HBM_BYTES_PER_S * 1e3)
+            continue
+
+        def plain_fwd():
+            bn.plain_normalize(x, bn.plain_stats(x, 1), scale, bias, 1e-5,
+                               1, bf)
+
+        def plain_bwd():
+            bn.plain_grad_input(x, dy, mean, rstd, scale,
+                                bn.plain_grad_sums(x, dy, mean, rstd, 1),
+                                st[2 * C], 1)
+
+        rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+        xr = x.detach().requires_grad_()
+        try:
+            yr = torch.batch_norm(xr, scale, bias, rm, rv, True, 0.1, 1e-5,
+                                  True)
+            lib_f = time_ms(lambda: torch.batch_norm(
+                x, scale, bias, rm, rv, True, 0.1, 1e-5, True))
+            lib_b = time_ms(lambda: torch.autograd.grad(yr, xr, dy,
+                                                        retain_graph=True))
+        except RuntimeError as e:   # a yardstick only: say why, go on
+            lib_f = lib_b = f"failed: {str(e).splitlines()[0][:80]}"
+            yr = None
+        p_f, p_b = time_ms(plain_fwd, iters=5), time_ms(plain_bwd, iters=5)
+        bound_f = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        bound_b = 3 * nbytes / HBM_BYTES_PER_S * 1e3
+        timed[name] = dict(shape=f"{BN_BATCH}x{C}x{side}x{side}", fwd_ms=f_ms,
+                           bwd_ms=b_ms, bound_fwd_ms=bound_f,
+                           bound_bwd_ms=bound_b, plain_fwd_ms=p_f,
+                           plain_bwd_ms=p_b, library_fwd_ms=lib_f,
+                           library_bwd_ms=lib_b,
+                           roofline_pct=100 * (bound_f + bound_b)
+                           / (f_ms + b_ms))
+        say("bn", timed=name, layers=layers, **timed[name])
+        del xr, yr
+    elements = sum(C * s * s * n for C, s, n in BN_RESNET50) * BN_BATCH
+    bound = 5 * 2 * elements / HBM_BYTES_PER_S * 1e3
+    say("bn", model="resnet50 b256 (53 layers, fwd+bwd)", kernel_ms=model_ms,
+        bound_ms=bound, roofline_pct=100 * bound / model_ms)
+    for kern, r in sorted(_build.ptxas_report("batch_norm").items()):
+        if "nv_bfloat16" in kern and ("ILi0ELi8E" in kern or r.get(
+                "spill_stores", 0)):
+            say("ptxas", kernel=kern, **r)
+    return dict(name="batch_norm", route="cuda",
+                source="horovod_tpu_torch/csrc/batch_norm.cu",
+                replaces="none: XLA-fused jnp (horovod_tpu/train/"
+                         "sync_batch_norm.py)", launches_per_layer=launches,
+                model_ms=model_ms, model_bound_ms=bound, **{
+                    f"{k}_{f}": v[f] for k, v in timed.items()
+                    for f in ("fwd_ms", "bwd_ms", "plain_fwd_ms",
+                              "plain_bwd_ms", "library_fwd_ms",
+                              "library_bwd_ms")})
 
 
 def ulps(a, b) -> int:
@@ -3386,10 +3609,12 @@ def phase_zoo_one(torch, name, kw, rows, size, opt_kind, lr, dev, mesh,
     parameters), the FLOPs of a step counted against bench.py's, the
     throughput, MFU and peak memory."""
     from horovod_tpu_torch.metrics import mfu
-    from horovod_tpu_torch.models._flax import init_state
+    from horovod_tpu_torch.models._flax import BatchNorm, init_state
+    from horovod_tpu_torch.ops import batch_norm as bn
     label = name + (f"_{kw['stem']}" if "stem" in kw else "")
     model = zoo_model(torch, name, kw, dev, mesh, torch.bfloat16)
     init_state(model, 0)
+    bn_layers = sum(isinstance(b, BatchNorm) for b in model.modules())
     init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     fwd = zoo_forward_check(torch, name, kw, size, dev, init)
     batch = zoo_batch(torch, name, rows, size, dev, seed=1)
@@ -3397,18 +3622,20 @@ def phase_zoo_one(torch, name, kw, rows, size, opt_kind, lr, dev, mesh,
 
     def run():
         opt = zoo_optimizer(torch, name, model, opt_kind, lr)
-        losses, secs = [], []
+        losses, secs, bn_launches = [], [], []
         for i in range(ZOO_STEPS):
             torch.cuda.synchronize()
+            launches = bn.launch_kernel.launches
             t0 = time.perf_counter()
             _, _, loss = step(model, opt, batch, i)
             losses.append(float(loss))
             secs.append(time.perf_counter() - t0)
-        return losses, secs, opt
+            bn_launches.append(bn.launch_kernel.launches - launches)
+        return losses, secs, opt, bn_launches
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, secs, opt = run()
+    losses, secs, opt, bn_launches = run()
     peak = torch.cuda.max_memory_allocated()
     where = device_breakdown(torch,
                              lambda: step(model, opt, batch, ZOO_STEPS))
@@ -3463,12 +3690,19 @@ def phase_zoo_one(torch, name, kw, rows, size, opt_kind, lr, dev, mesh,
             "flops_rel": None if analytic is None
             else abs(flops - analytic) / analytic,
             "mfu": mfu.mfu(flops, med), "peak_bytes_in_use": peak,
+            "bn_layers": bn_layers,
+            "bn_launches_a_step": ",".join(map(str, bn_launches)),
             **where, **fwd, "tol_loss_rel": ZOO_LOSS_TOL,
             "tol_logit": ZOO_LOGIT_TOL,
             "card": card}
     say("zoo", **line)
     check(all(map(math.isfinite, losses)), f"zoo {label}: non-finite loss "
                                            f"{losses}")
+    # every batch norm of the step runs csrc/batch_norm.cu, two kernels
+    # forward and two backward (212 a step for ResNet-50's 53)
+    check(all(n == 4 * bn_layers for n in bn_launches),
+          f"zoo {label}: {bn_launches} batch norm launches in the steps, "
+          f"not 4 x {bn_layers}")
     check(fell, f"zoo {label}: the loss did not fall over {ZOO_STEPS} "
                 f"steps ({checked}): {losses}")
     check(fwd["bf16_loss_rel"] <= ZOO_LOSS_TOL,
@@ -6663,6 +6897,8 @@ def main() -> int:
                phase_xent(torch, xent, dev),
                *phase_quantizers(torch, quantize, dev),
                *phase_optimizer_kernels(torch, quantize, dev)]
+    # a kernel the port adds, with no Pallas kernel behind it
+    added = [phase_bn(torch, dev)]
 
     # -- the main path: entry() forward, then the trainer
     counters = (attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda)
@@ -6979,6 +7215,7 @@ def main() -> int:
             "examples_launches")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}), flush=True)
+    print(json.dumps({"added_kernels": added}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

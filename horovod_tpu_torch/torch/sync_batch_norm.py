@@ -20,6 +20,7 @@ import torch
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.ops import batch_norm as bn
 from horovod_tpu_torch.train.sync_batch_norm import batch_norm_train
 
 
@@ -62,14 +63,9 @@ class SyncBatchNorm(_BatchNorm):
             input.new_ones(c, dtype=torch.float32)
         bias = self.bias if self.bias is not None else \
             input.new_zeros(c, dtype=torch.float32)
-        y, mean, var, n = batch_norm_train(input, weight, bias, (axis,),
-                                           self.eps, 1, input.dtype)
+        running = None
         if self.track_running_stats and self.running_mean is not None:
-            with torch.no_grad():
-                unbiased = var * torch.where(n > 1, n / (n - 1),
-                                             torch.ones_like(n))
-                self.running_mean.mul_(1 - factor).add_(
-                    factor * mean.to(self.running_mean.dtype))
-                self.running_var.mul_(1 - factor).add_(
-                    factor * unbiased.to(self.running_var.dtype))
-        return y
+            running = bn.Running(self.running_mean, self.running_var,
+                                 1 - factor, factor, True)
+        return batch_norm_train(input, weight, bias, (axis,), self.eps, 1,
+                                input.dtype, running)[0]

@@ -10,13 +10,14 @@ and an axis that is ``None`` or of size 1 is the identity, as there.
 
 Both forms sit on one autograd function, written out as reference
 Horovod's ``torch/sync_batch_norm.py`` does: the forward all-reduces one
-fp32 vector ``[Σx, Σx², n]`` over each axis (fp64 for fp64 inputs; the
-biased variance is ``E[x²] − E[x]²``, clipped at 0, as flax's fast
-variance); the backward
+vector ``[Σx, Σx², n]`` over each axis (the biased variance is
+``E[x²] − E[x]²``, clipped at 0, as flax's fast variance); the backward
 all-reduces the two cotangent sums ``[Σdy, Σdy·x̂]`` the input gradient
-needs. The scale's and bias's gradients stay this rank's own sums: the
-train step's gradient sync adds them over the data axes, as it adds every
-other leaf's. A loss that is the sum of the ranks' losses (each rank's
+needs. Both vectors are fp64 on every device (the card's kernels sum in
+fp64; the CPU's sums are widened), and each stage rounds them to the
+statistics' dtype. The scale's and bias's gradients stay this rank's own
+sums: the train step's gradient sync adds them over the data axes, as it
+adds every other leaf's. A loss that is the sum of the ranks' losses (each rank's
 share of the global mean, as the port's train steps give it) then has its
 true gradient: that of plain batch norm over the concatenated batch in one
 process.
@@ -30,12 +31,12 @@ JAX zoo's GSPMD-auto step computes over its sharded global batch.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from horovod_tpu_torch.ops import batch_norm as bn
 from horovod_tpu_torch.ops.mesh_collectives import preduce
 from horovod_tpu_torch.ops.reduce_op import ReduceOp
 
@@ -43,12 +44,6 @@ from horovod_tpu_torch.ops.reduce_op import ReduceOp
 def _axes_live(axes: Optional[Sequence]) -> Tuple:
     """The axes that run collectives: present and of size > 1."""
     return tuple(a for a in (axes or ()) if a is not None and a.size > 1)
-
-
-def _stat_dtype(x: torch.Tensor) -> torch.dtype:
-    """The statistics' dtype: at least fp32 (flax's promotion: bf16 and
-    fp16 compute fp32 moments, fp64 stays fp64)."""
-    return torch.promote_types(x.dtype, torch.float32)
 
 
 def _allreduce(v: torch.Tensor, axes) -> torch.Tensor:
@@ -59,59 +54,51 @@ def _allreduce(v: torch.Tensor, axes) -> torch.Tensor:
 
 class _BatchNorm(torch.autograd.Function):
     """``y = (x − mean)·rsqrt(var + eps)·scale + bias`` in the statistics'
-    dtype, cast to ``out_dtype``, with the moments over ``dims`` of ``x``
-    and the live ``axes``. Returns ``(y, mean, var, n)``; only ``y`` has
-    a gradient."""
+    dtype, cast to ``out_dtype``, with the moments over every dim of ``x``
+    but ``channel_dim`` and over the live ``axes``; ``running`` (a
+    :class:`~horovod_tpu_torch.ops.batch_norm.Running` or None) updated in
+    place. Returns ``(y, mean, var, n)``, ``n`` in fp64 on every device;
+    only ``y`` has a gradient. The stages are ``ops/batch_norm``'s:
+    its kernels on the card, its plain versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, axes, eps, channel_dim, out_dtype):
-        dims = [d for d in range(x.dim()) if d != channel_dim]
-        bshape = [1] * x.dim()
-        bshape[channel_dim] = x.shape[channel_dim]
-        xf = x.to(_stat_dtype(x))
-        n_local = math.prod(x.shape[d] for d in dims)
-        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
-                           xf.new_full((1,), float(n_local))])
-        stats = _allreduce(stats, axes)
-        C = x.shape[channel_dim]
-        n = stats[2 * C]
-        mean = stats[:C] / n
-        var = torch.clamp_min(stats[C:2 * C] / n - mean * mean, 0.0)
-        rstd = torch.rsqrt(var + eps)
-        mul = (rstd * scale.to(xf.dtype)).view(bshape)
-        y = ((xf - mean.view(bshape)) * mul + bias.to(xf.dtype).view(bshape))
+    def forward(ctx, x, scale, bias, axes, eps, channel_dim, out_dtype,
+                running):
+        x = bn.kernel_input(x, channel_dim)
+        stats = _allreduce(bn.stats(x, channel_dim), axes)
+        y, mean, var, rstd = bn.normalize(x, stats, scale, bias, eps,
+                                          channel_dim, out_dtype, running)
+        n = stats[mean.numel() * 2]
         ctx.save_for_backward(x, scale, mean, rstd)
-        ctx.axes, ctx.dims, ctx.bshape, ctx.n = axes, dims, bshape, n
+        ctx.axes, ctx.channel_dim, ctx.n = axes, channel_dim, n
         ctx.bias_dtype = bias.dtype
         ctx.mark_non_differentiable(mean, var, n)
-        return y.to(out_dtype), mean, var, n
+        return y, mean, var, n
 
     @staticmethod
     def backward(ctx, dy, _mean, _var, _n):
         x, scale, mean, rstd = ctx.saved_tensors
-        dims, bshape = ctx.dims, ctx.bshape
-        C = mean.numel()
-        xhat = (x.to(mean.dtype) - mean.view(bshape)) * rstd.view(bshape)
-        dyf = dy.to(mean.dtype)
-        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        cd, C = ctx.channel_dim, mean.numel()
+        local = bn.grad_sums(x, dy, mean, rstd, cd)
         glob = _allreduce(local, ctx.axes) if ctx.axes else local
-        sdy, sdyx = (glob[:C] / ctx.n).view(bshape), \
-            (glob[C:] / ctx.n).view(bshape)
-        dx = (dyf - sdy - xhat * sdyx) * (rstd * scale.to(rstd.dtype)
-                                           ).view(bshape)
-        return (dx.to(x.dtype), local[C:].to(scale.dtype),
-                local[:C].to(ctx.bias_dtype), None, None, None, None)
+        dx = bn.grad_input(x, dy, mean, rstd, scale, glob, ctx.n, cd)
+        dbias, dscale = local.to(scale.dtype).view(2, C).unbind(0)
+        return (dx, dscale, dbias.to(ctx.bias_dtype), None, None, None, None,
+                None)
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      axes=(), eps: float = 1e-5, channel_dim: int = -1,
-                     out_dtype: Optional[torch.dtype] = None):
+                     out_dtype: Optional[torch.dtype] = None,
+                     running: Optional[bn.Running] = None):
     """Batch norm in training mode: ``(y, mean, var, n)``, with the batch
     moments (fp32 or fp64, biased variance) over every dim of ``x`` but
     ``channel_dim`` and over the live ``axes``, and ``n`` the global count
-    they were taken over."""
+    they were taken over (fp64). ``running``, when given, is updated in place
+    with them (on the card by the forward's second kernel)."""
     return _BatchNorm.apply(x, scale, bias, _axes_live(axes), eps,
-                            channel_dim % x.dim(), out_dtype or x.dtype)
+                            channel_dim % x.dim(), out_dtype or x.dtype,
+                            running)
 
 
 def sync_batch_norm_spmd(x: torch.Tensor, scale: torch.Tensor,
@@ -169,18 +156,11 @@ class SyncBatchNorm(nn.Module):
             shape[cd] = x.shape[cd]
             mul = (torch.rsqrt(self.var + self.epsilon) * self.scale
                    ).view(shape)
-            y = (x.to(_stat_dtype(x)) - self.mean.view(shape)) * mul \
+            y = (x.to(bn.stat_dtype(x)) - self.mean.view(shape)) * mul \
                 + self.bias.view(shape)
             return y.to(out_dtype)
-        y, mean, var, n = batch_norm_train(x, self.scale, self.bias,
-                                           self.axes, self.epsilon, cd,
-                                           out_dtype)
-        if not self.recomputing:
-            with torch.no_grad():
-                if self.unbiased_running_var:
-                    var = var * torch.where(n > 1, n / (n - 1),
-                                            torch.ones_like(n))
-                m = self.momentum
-                self.mean.mul_(m).add_((1 - m) * mean)
-                self.var.mul_(m).add_((1 - m) * var)
-        return y
+        running = None if self.recomputing else bn.Running(
+            self.mean, self.var, self.momentum, 1 - self.momentum,
+            self.unbiased_running_var)
+        return batch_norm_train(x, self.scale, self.bias, self.axes,
+                                self.epsilon, cd, out_dtype, running)[0]

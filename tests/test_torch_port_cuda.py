@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import attention, quantize, xent
+from horovod_tpu_torch.ops import batch_norm as bn
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -801,6 +802,305 @@ def test_sync_batch_norm_over_nccl_world_of_one(nccl_mesh):
         assert float((a - b).abs().max()) <= 1e-5
 
 
+# -- the batch norm kernels (csrc/batch_norm.cu) ------------------------------
+
+# (x, y) dtypes: the kernels' own (one dtype) and pairs they run in the
+# statistics' dtype; (shape, channels innermost): ResNet-50's stem and stage
+# 4 at a smaller batch in both layouts, and ragged ones (C 3, 17 and 2048;
+# M 1 and odd row counts; [N, C] and [N, C, L])
+BN_PAIRS = [(BF, BF), (torch.float16, torch.float16),
+            (torch.float32, torch.float32), (torch.float64, torch.float64),
+            (BF, torch.float32), (torch.float16, torch.float32),
+            (torch.float32, BF), (torch.float16, BF),
+            (torch.float64, torch.float32)]
+BN_SHAPES = [((16, 64, 112, 112), True), ((16, 64, 112, 112), False),
+             ((64, 2048, 7, 7), True), ((64, 2048, 7, 7), False),
+             ((5, 3, 9, 11), True), ((5, 3, 9, 11), False),
+             ((1, 17, 3, 5), True), ((7, 17), False), ((1, 2048), False),
+             ((3, 17, 33), False), ((3, 2048, 1, 1), True)]
+
+
+def _bn_case(dev, shape, inner, xdt, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fmt = torch.channels_last if inner and len(shape) == 4 else \
+        torch.contiguous_format
+    x = (torch.randn(shape, generator=g, device=dev, dtype=torch.float64)
+         * 1.5 + 0.3).to(xdt).contiguous(memory_format=fmt)
+    dy = torch.randn(shape, generator=g, device=dev,
+                     dtype=torch.float64).to(xdt).contiguous(
+                         memory_format=fmt)
+    acc = bn.stat_dtype(x)
+    C = shape[1]
+    scale = (torch.rand(C, generator=g, device=dev, dtype=torch.float64)
+             + 0.5).to(acc)
+    bias = torch.randn(C, generator=g, device=dev, dtype=torch.float64
+                       ).to(acc)
+    return x, dy, scale, bias
+
+
+def _sums_close(got, want, scale, tol):
+    return float(((got - want).abs() / scale.clamp_min(1e-30)).max()) <= tol
+
+
+@pytest.mark.parametrize("shape,inner", BN_SHAPES)
+@pytest.mark.parametrize("xdt,ydt", BN_PAIRS)
+def test_bn_kernels_match_plain(dev, shape, inner, xdt, ydt):
+    """Each stage against its plain version on the card: the kernels' fp64
+    sums within the plain sums' rounding (fp32 sums 1e-5 of Σ|.|, fp64
+    1e-12), and from the same sums rounded to the statistics' dtype y, mean,
+    var, rstd, the running averages and dx to the bit."""
+    x, dy, scale, bias = _bn_case(dev, shape, inner, xdt)
+    dy = dy.to(ydt)
+    cd, C = 1, shape[1]
+    tol = 1e-12 if xdt == torch.float64 else 1e-5
+    xa = x.to(bn.stat_dtype(x))
+    before = bn.launch_kernel.launches
+    st = bn.stats_cuda(x, cd)
+    st_ref = bn.plain_stats(x, cd)
+    ab = bn.plain_stats(xa.abs(), cd)
+    assert _sums_close(st[:C], st_ref[:C], ab[:C], tol)
+    assert _sums_close(st[C:], st_ref[C:], ab[C:], tol)
+    assert float(st[2 * C]) == float(st_ref[2 * C])
+
+    acc = bn.stat_dtype(x)
+    for unbiased in (False, True):
+        runs = [bn.Running(torch.linspace(-1, 1, C, device=dev, dtype=acc),
+                           torch.linspace(0.5, 2, C, device=dev, dtype=acc),
+                           0.9, 0.1, unbiased) for _ in range(2)]
+        y, mean, var, rstd = bn.normalize_cuda(x, st, scale, bias, 1e-5, cd,
+                                               ydt, runs[0])
+        ref = bn.plain_normalize(x, st.to(acc), scale, bias, 1e-5, cd, ydt)
+        bn.plain_update_running(runs[1], ref[1], ref[2], st[2 * C].to(acc))
+        assert y.dtype == ydt and y.stride() == x.stride()
+        for a, b in zip((y, mean, var, rstd, runs[0].mean, runs[0].var),
+                        (*ref, runs[1].mean, runs[1].var)):
+            assert torch.equal(a, b)
+
+    sums = bn.grad_sums_cuda(x, dy, mean, rstd, cd)
+    sums_ref = bn.plain_grad_sums(x, dy, mean, rstd, cd)
+    abs_ref = bn.plain_grad_sums(x.abs(), dy.abs(), torch.zeros_like(mean),
+                                 rstd, cd)
+    assert _sums_close(sums[:C], sums_ref[:C], abs_ref[:C], tol)
+    # Σ|dy|·|x − mean|·rstd bounds the cancellation in Σdy·x̂
+    abs_dyx = bn.plain_grad_sums((x.to(mean.dtype) - mean.view(1, C, *[1] * (
+        x.dim() - 2))).abs(), dy.abs(), torch.zeros_like(mean), rstd, cd)
+    assert _sums_close(sums[C:], sums_ref[C:], abs_dyx[C:], tol)
+    dx = bn.grad_input_cuda(x, dy, mean, rstd, scale, sums, st[2 * C], cd)
+    dx_ref = bn.plain_grad_input(x, dy, mean, rstd, scale, sums.to(acc),
+                                 st[2 * C].to(acc), cd)
+    torch.cuda.synchronize()
+    assert dx.dtype == xdt and dx.stride() == x.stride()
+    assert torch.equal(dx, dx_ref)
+    assert bn.launch_kernel.launches == before + 5
+
+
+@pytest.mark.parametrize("shape,inner", [((16, 64, 112, 112), True),
+                                         ((64, 2048, 7, 7), False),
+                                         ((7, 17), False)])
+def test_bn_kernels_give_the_same_bits_twice(dev, shape, inner):
+    """The sums take no float atomics: two calls, the same bits."""
+    x, dy, scale, bias = _bn_case(dev, shape, inner, BF)
+    outs = []
+    for _ in range(2):
+        st = bn.stats_cuda(x, 1)
+        y, mean, var, rstd = bn.normalize_cuda(x, st, scale, bias, 1e-5, 1,
+                                               BF)
+        sums = bn.grad_sums_cuda(x, dy, mean, rstd, 1)
+        outs.append((st, y, sums, bn.grad_input_cuda(
+            x, dy, mean, rstd, scale, sums, st[2 * shape[1]], 1)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_bn_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.randn(8, 4, device=dev)
+    with pytest.raises(TypeError):
+        bn.stats_cuda(x.to(torch.int32), 1)
+    with pytest.raises(TypeError):
+        bn.normalize_cuda(x, torch.zeros(9, device=dev),
+                          torch.ones(4, device=dev),
+                          torch.zeros(4, device=dev), 1e-5, 1, torch.int32)
+    with pytest.raises(ValueError):
+        bn.stats_cuda(x.cpu(), 1)
+    with pytest.raises(ValueError):
+        bn.normalize_cuda(x, bn.stats_cuda(x, 1), torch.ones(4),
+                          torch.zeros(4), 1e-5, 1, torch.float32)
+
+
+def test_bn_kernels_take_other_strides_and_running_dtypes(dev):
+    """Activations of neither layout are copied to a contiguous one, a
+    cotangent of another layout than x to x's, and running averages of
+    another dtype than the statistics (an fp64 adapter over fp32 input)
+    are updated after the launch: the same values as the plain stages."""
+    from horovod_tpu_torch.train.sync_batch_norm import batch_norm_train
+    base, dy, scale, bias = _bn_case(dev, (6, 12, 5, 7), False,
+                                     torch.float32)
+    x = base.transpose(2, 3)                  # NCWH strides: neither layout
+    assert bn.kernel_input(x, 1) is not x
+    dy = dy.transpose(2, 3).contiguous(memory_format=torch.channels_last)
+    runs = [bn.Running(torch.zeros(12, device=dev, dtype=torch.float64),
+                       torch.ones(12, device=dev, dtype=torch.float64), 0.9,
+                       0.1, True) for _ in range(2)]
+    xs = x.clone().requires_grad_()
+    y, mean, var, n = batch_norm_train(xs, scale, bias, (), 1e-5, 1,
+                                       torch.float32, runs[0])
+    y.backward(dy)
+    st = bn.plain_stats(x, 1)
+    y_ref, m_ref, v_ref, r_ref = bn.plain_normalize(x, st, scale, bias, 1e-5,
+                                                    1, torch.float32)
+    bn.plain_update_running(runs[1], m_ref, v_ref, st[24])
+    sums = bn.plain_grad_sums(x, dy, m_ref, r_ref, 1)
+    dx_ref = bn.plain_grad_input(x, dy, m_ref, r_ref, scale, sums, st[24], 1)
+    torch.cuda.synchronize()
+    for a, b in ((y, y_ref), (xs.grad, dx_ref), (runs[0].mean, runs[1].mean),
+                 (runs[0].var, runs[1].var)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("recomputing", [False, True])
+def test_zoo_bn_layer_runs_the_kernels_and_its_running_averages(dev,
+                                                                 recomputing):
+    """The zoo's layer on the card: two launches forward, two backward; the
+    running averages updated by the forward's second kernel as the plain
+    update would, and left alone while the block is recomputed."""
+    from horovod_tpu_torch.models._flax import BatchNorm
+    x, dy, _, _ = _bn_case(dev, (8, 32, 14, 14), True, BF)
+    m = BatchNorm(32, dtype=BF, device=dev)
+    m.recomputing = recomputing
+    mean0, var0 = m.mean.clone(), m.var.clone()
+    before = bn.launch_kernel.launches
+    xs = x.clone().requires_grad_()
+    m(xs).backward(dy)
+    torch.cuda.synchronize()
+    assert bn.launch_kernel.launches == before + 4
+    if recomputing:
+        assert torch.equal(m.mean, mean0) and torch.equal(m.var, var0)
+        return
+    st = bn.stats_cuda(x, 1).float()
+    want = bn.Running(mean0, var0, 0.9, 1 - 0.9, False)
+    _, mean, var, _ = bn.plain_normalize(x, st, m.scale.detach(),
+                                         m.bias.detach(), 1e-5, 1, BF)
+    bn.plain_update_running(want, mean, var, st[64])
+    assert torch.equal(m.mean, want.mean) and torch.equal(m.var, want.var)
+
+
+@pytest.mark.parametrize("xdt,ydt", [(torch.float32, BF), (BF, torch.float32),
+                                     (torch.float16, BF),
+                                     (torch.float64, torch.float32)])
+def test_bn_layer_takes_x_and_y_of_two_dtypes(dev, xdt, ydt):
+    """The zoo layer with an output dtype other than its input's (flax's
+    ``nn.BatchNorm(dtype=...)``) runs the four kernels, in the statistics'
+    dtype, and gives y and dx in their dtypes with the bits of the plain
+    stages fed its kernels' sums."""
+    from horovod_tpu_torch.models._flax import BatchNorm
+    x, dy, scale, bias = _bn_case(dev, (8, 24, 9, 7), True, xdt)
+    m = BatchNorm(24, dtype=ydt, device=dev)
+    with torch.no_grad():
+        m.scale.copy_(scale)
+        m.bias.copy_(bias)
+    before = bn.launch_kernel.launches
+    xs = x.clone().requires_grad_()
+    y = m(xs)
+    y.backward(dy.to(ydt))
+    torch.cuda.synchronize()
+    assert bn.launch_kernel.launches == before + 4
+    acc = bn.stat_dtype(x)
+    st = bn.stats_cuda(x, 1)
+    y_ref, mean, _, rstd = bn.plain_normalize(x, st, m.scale.detach(),
+                                              m.bias.detach(), 1e-5, 1, ydt)
+    sums = bn.grad_sums_cuda(x, dy.to(ydt), mean, rstd, 1)
+    dx_ref = bn.plain_grad_input(x, dy.to(ydt), mean, rstd,
+                                 m.scale.detach(), sums, st[48], 1)
+    assert y.dtype == ydt and xs.grad.dtype == xdt and mean.dtype == acc
+    assert torch.equal(y, y_ref) and torch.equal(xs.grad, dx_ref)
+
+
+def test_resnet50_step_launches_four_bn_kernels_a_layer(dev):
+    """One ResNet-50 training step on the card (bf16, batch 2 at 64x64):
+    every one of its 53 batch norms runs two kernels forward and two
+    backward, and nothing else launches them."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.models._flax import BatchNorm, init_state
+    m = resnet.ResNet50(10, device=dev)
+    init_state(m, 0)
+    assert sum(isinstance(b, BatchNorm) for b in m.modules()) == 53
+    opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.rand(2, 3, 64, 64, generator=g, device=dev)
+    y = torch.randint(0, 10, (2,), generator=g, device=dev)
+    step = resnet.make_resnet_train_step(m)
+    before = bn.launch_kernel.launches
+    _, _, loss = step(m, opt, x, y)
+    torch.cuda.synchronize()
+    assert bn.launch_kernel.launches - before == 4 * 53
+    assert torch.isfinite(loss)
+
+
+SBN_ROWS, SBN_C = 4, 32      # a rank's images, channels
+
+
+def _sbn_batch():
+    rng = np.random.RandomState(7)
+    x = (rng.randn(2 * SBN_ROWS, SBN_C, 6, 5) * 1.3 + 0.2).astype(np.float32)
+    w = rng.randn(2 * SBN_ROWS, SBN_C, 6, 5).astype(np.float32)
+    return x, w, np.linspace(0.5, 1.5, SBN_C, dtype=np.float32), \
+        np.linspace(-1, 1, SBN_C, dtype=np.float32)
+
+
+def _sbn_run(d, x, w, scale, bias, axes=()):
+    from horovod_tpu_torch.models._flax import BatchNorm
+    m = BatchNorm(SBN_C, dtype=torch.float32, axes=axes, device=d)
+    with torch.no_grad():
+        m.scale.copy_(torch.from_numpy(scale))
+        m.bias.copy_(torch.from_numpy(bias))
+    xs = torch.from_numpy(x).to(d).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    before = bn.launch_kernel.launches
+    y = m(xs)
+    (y * torch.from_numpy(w).to(d)).sum().backward()
+    torch.cuda.synchronize()
+    return {"y": y.detach().cpu().numpy(), "dx": xs.grad.cpu().numpy(),
+            "dscale": m.scale.grad.cpu().numpy(),
+            "dbias": m.bias.grad.cpu().numpy(), "mean": m.mean.cpu().numpy(),
+            "var": m.var.cpu().numpy(),
+            "launches": np.array(bn.launch_kernel.launches - before)}
+
+
+def _w_sbn_nccl():
+    """One rank of the zoo's sync-BN over NCCL on two cards: its block of
+    the batch through the kernels, the moments all-reduced between them."""
+    import horovod_tpu_torch as hvd
+    mesh = hvd.build_mesh(dp=2)
+    r = hvd.rank()
+    x, w, scale, bias = _sbn_batch()
+    blk = slice(r * SBN_ROWS, (r + 1) * SBN_ROWS)
+    return _sbn_run(hvd.device(), x[blk], w[blk], scale, bias,
+                    [mesh.axis("dp")])
+
+
+def test_sync_batch_norm_kernels_over_nccl_two_cards(dev, tmp_path):
+    """Two cards, one NCCL rank each: y, dx and the running averages equal
+    one process's over the concatenated batch, and the ranks' scale and
+    bias gradients sum to its."""
+    from torch_port_worker import spawn_world
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    ranks = spawn_world(__file__, "sbn_nccl", 2, tmp_path,
+                        {"HOROVOD_TPU_OPERATIONS": "NCCL"}, timeout=300)
+    one = _sbn_run(dev, *_sbn_batch())
+    assert int(one["launches"]) == 4
+    for r, res in enumerate(ranks):
+        blk = slice(r * SBN_ROWS, (r + 1) * SBN_ROWS)
+        assert int(res["launches"]) == 4
+        np.testing.assert_allclose(res["y"], one["y"][blk], atol=1e-5)
+        np.testing.assert_allclose(res["dx"], one["dx"][blk], atol=1e-5)
+        np.testing.assert_allclose(res["mean"], one["mean"], atol=1e-6)
+        np.testing.assert_allclose(res["var"], one["var"], rtol=1e-5)
+    for k in ("dscale", "dbias"):
+        np.testing.assert_allclose(ranks[0][k] + ranks[1][k], one[k],
+                                   rtol=1e-4, atol=1e-3)
+
+
 def test_resnet_step_on_nccl_world_of_one_matches_cpu(nccl_mesh):
     """``make_resnet_train_step`` on the dp mesh of an NCCL world of one
     (its gradient sync runs) against the same step on the CPU without a
@@ -918,7 +1218,8 @@ if __name__ == "__main__":
     from torch_port_worker import worker_main
     sys.exit(worker_main({"ring": _w_ring, "pp_nccl": _w_pp_nccl,
                           "nccl_peer_dies": _w_nccl_peer_dies,
-                          "eager_nccl": _w_eager_nccl},
+                          "eager_nccl": _w_eager_nccl,
+                          "sbn_nccl": _w_sbn_nccl},
                          sys.argv[1:]))
 
 
