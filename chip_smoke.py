@@ -24,6 +24,10 @@ running averages and dx to the bit from the kernels' own sums) and
 through the zoo's layer at the stem, then times them beside the five-pass
 bound, the plain stages and cuDNN's ``torch.batch_norm``. ``[zoo]`` checks
 that every step of a model runs four of them for each of its batch norms.
+``[flash_mla]`` holds the attention kernel's (192, 128) instance
+(multi-head latent attention, ``models/deepseek.py``) to its plain version,
+v a strided view as the model gives it, and times it at the DeepSeek cell's
+8x4096x16 beside the plain version, SDPA and its operations bound.
 
 The int8 error-feedback slice adds six kernels (``csrc/quantize.cu``), each
 held against its plain version at the flagship embedding's [64000, 256],
@@ -834,6 +838,70 @@ def phase_flash(torch, attention, dev):
     return dict(name="flash_attention_fwd", route="cuda",
                 source="horovod_tpu_torch/csrc/flash_attn_fwd.cu",
                 replaces="horovod_tpu/ops/pallas_attention.py:41",
+                max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+# multi-head latent attention (models/deepseek.py) at its benchmark cell's
+# shape: scores over 192 dims, values of 128, YaRN's softmax scale
+MLA_SHAPE = (8, 4096, 16, 192, 128)
+MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40.0) + 1.0) ** 2
+
+
+def phase_flash_mla(torch, attention, dev):
+    """The (192, 128) instance of flash_attn_fwd against
+    plain_attention_with_lse, v a strided view of the fused up-projection
+    as the model gives it, bf16 (causal, full, ragged) and fp32; then timed
+    at the DeepSeek cell's 8x4096x16x(192/128) beside the plain version,
+    SDPA and the operations bound."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [  # B, S, H, dtype, causal, tolerance
+        (8, 4096, 16, torch.bfloat16, True, 2e-2),     # the cell's call
+        (2, 333, 16, torch.bfloat16, False, 2e-2),
+        (2, 200, 4, torch.float32, True, 1e-4),
+        (1, 4096, 16, torch.float32, True, 1e-4),
+    ]
+    main_err = None
+    for B, S, H, dt, causal, tol in cases:
+        q, k = (torch.randn(B, S, H, 192, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn(B, S, H, 256, generator=g, device=dev).to(dt)[
+            ..., 128:]
+        o, lse = attention.flash_attn_fwd_cuda(q, k, v, causal, MLA_SCALE)
+        o_ref, lse_ref = attention.plain_attention_with_lse(q, k, v, causal,
+                                                            MLA_SCALE)
+        torch.cuda.synchronize()
+        e_o, e_lse = max_err(o, o_ref), max_err(lse, lse_ref)
+        del o_ref, lse_ref
+        say("flash_mla", shape=f"{B}x{S}x{H}x192/128",
+            dtype=str(dt).split(".")[-1], causal=causal, max_abs_err_o=e_o,
+            max_abs_err_lse=e_lse, tol=tol)
+        check(e_o <= tol and e_lse <= tol,
+              f"flash_attn_fwd (192, 128) disagrees with the plain version "
+              f"at {(B, S, H, dt, causal)}: {e_o}, {e_lse} > {tol}")
+        if main_err is None:
+            main_err = max(e_o, e_lse)
+    B, S, H, D, Dv = MLA_SHAPE
+    q, k = (torch.randn(B, S, H, D, generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    v = torch.randn(B, S, H, 2 * Dv, generator=g, device=dev,
+                    dtype=torch.bfloat16)[..., Dv:]
+    ms = time_ms(lambda: attention.flash_attn_fwd_cuda(q, k, v, True,
+                                                       MLA_SCALE))
+    plain = time_ms(lambda: attention.plain_attention_with_lse(
+        q, k, v, True, MLA_SCALE), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=MLA_SCALE))
+    n_ops = attention.flash_attn_fwd_flops(B, S, S, H, D, True, Dv)
+    n_bytes = B * S * H * ((2 * D + 2 * Dv) * 2 + 4)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+    say("flash_mla", timed=f"{B}x{S}x{H}x{D}/{Dv} bf16 causal", ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        tflops=n_ops / ms * 1e-9, library_tflops=n_ops / lib * 1e-9)
+    return dict(name="flash_attention_fwd (192, 128)", route="cuda",
+                source="horovod_tpu_torch/csrc/flash_attn_fwd.cu",
+                replaces="none: MLA's value width differs from its key width",
                 max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib)
 
@@ -6898,7 +6966,7 @@ def main() -> int:
                *phase_quantizers(torch, quantize, dev),
                *phase_optimizer_kernels(torch, quantize, dev)]
     # a kernel the port adds, with no Pallas kernel behind it
-    added = [phase_bn(torch, dev)]
+    added = [phase_bn(torch, dev), phase_flash_mla(torch, attention, dev)]
 
     # -- the main path: entry() forward, then the trainer
     counters = (attention.flash_attn_fwd_cuda, xent.xent_fwd_cuda)

@@ -31,6 +31,12 @@
 //   and writes lse converted back to the natural log.
 // The fp32 path (fp32 parity, not the main path) keeps scalar FMAs and plain
 // loads in a kernel of its own.
+//
+// q and k share one head dim D and v may have its own, DV: multi-head latent
+// attention (DeepSeek-V2) takes its scores over 192 dims (128 without position,
+// 64 rotated) and its values over 128. Instances: (D, DV) of (64, 64), (128, 128)
+// and (192, 128). A 192-deep q.k^T is three 64-column panels and twelve k16
+// steps; the output accumulator and P.V are those of DV 128.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -69,13 +75,15 @@ static_assert(BQ == BK, "the ring's tiles and the Q tile share one layout");
 // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)): what TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B and what a wgmma descriptor of layout
 // type 1 reads. Every panel starts on a 1024-byte boundary.
-template <int D>
+template <int D, int DV>
 struct Ring {
-  static constexpr int TILE = (D / PANEL_COLS) * PANEL;
+  static constexpr int TILE = (D / PANEL_COLS) * PANEL;     // a Q or K tile
+  static constexpr int VTILE = (DV / PANEL_COLS) * PANEL;   // a V tile
+  static_assert(VTILE <= TILE, "o is staged in the Q buffer");
   static constexpr int q_off = 0;
   static constexpr int k_off = q_off + TILE;
   static constexpr int v_off = k_off + STAGES * TILE;
-  static constexpr int bar_off = v_off + STAGES * TILE;  // Q, full K/V, empty K/V
+  static constexpr int bar_off = v_off + STAGES * VTILE;  // Q, full K/V, empty K/V
   static constexpr int n_bars = 1 + 4 * STAGES;
   static constexpr int bytes = bar_off + 8 * n_bars + 1024;  // + room to align to 1024
 };
@@ -240,13 +248,13 @@ __device__ __forceinline__ void issue_scores(float (&sc)[32], uint32_t sQ, uint3
 
 // O += P . V, issued and not committed: 4 steps of 16 keys (16 rows of 128 bytes);
 // V is the B operand read transposed, its panels LBO apart.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[16],
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&acc)[DV / 2], const uint32_t (&pa)[16],
                                          uint32_t sV) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t dv = wg_desc(sV + kk * 16 * 128, PANEL, 1024);
-    if constexpr (D == 64)
+    if constexpr (DV == 64)
       wgmma_rs_n64(acc, pa + 4 * kk, dv);
     else
       wgmma_rs_n128(acc, pa + 4 * kk, dv);
@@ -310,14 +318,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2],
   }
 }
 
-template <int D, bool kPos>
+template <int D, int DV, bool kPos>
 __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
     flash_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           bf16* __restrict__ o, float* __restrict__ lse, int H,
                           int Sq, int Sk, int causal, float sl2) {
-  using R = Ring<D>;
+  using R = Ring<D, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -328,7 +336,7 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
   auto emptyK = [&](int s) { return barQ + 8u * (1 + 2 * STAGES + s); };
   auto emptyV = [&](int s) { return barQ + 8u * (1 + 3 * STAGES + s); };
   auto sK = [&](int s) { return base + R::k_off + s * R::TILE; };
-  auto sV = [&](int s) { return base + R::v_off + s * R::TILE; };
+  auto sV = [&](int s) { return base + R::v_off + s * R::VTILE; };
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
@@ -366,9 +374,9 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
         for (int p = 0; p < D / PANEL_COLS; ++p)
           tma_load(sK(s) + p * PANEL, &tk, fullK(s), p * PANEL_COLS, h, kt * BK, b);
         if (kt >= STAGES) mbar_wait(emptyV(s), parity);
-        mbar_expect_tx(fullV(s), R::TILE);
+        mbar_expect_tx(fullV(s), R::VTILE);
 #pragma unroll
-        for (int p = 0; p < D / PANEL_COLS; ++p)
+        for (int p = 0; p < DV / PANEL_COLS; ++p)
           tma_load(sV(s) + p * PANEL, &tv, fullV(s), p * PANEL_COLS, h, kt * BK, b);
       }
     }
@@ -380,9 +388,9 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
   const int r0 = warp * 16 + lane / 4;  // rows r0 and r0 + 8
   const int c2 = 2 * (lane % 4);        // first of this thread's column pair
   const uint32_t sQ = base + R::q_off;
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f}, alpha[2];
   auto release = [&](uint32_t bar) {
     __syncwarp();
@@ -425,7 +433,7 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
       issue_scores<D>(sc, sQ, sK(s));
       wg_commit();
       wait_full(fullV(sp), kt - 1);
-      issue_pv<D>(acc, pa, sV(sp));
+      issue_pv<DV>(acc, pa, sV(sp));
       wg_commit();
       wg_wait<1>();  // the scores are in; P.V of tile kt-1 may still run
       reg_fence(sc);
@@ -435,14 +443,14 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
       reg_fence(acc);
       release(emptyV(sp));
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
       pack_p(pa, sc);
     }
     const int sp = (n_kt - 1) % STAGES;
     wait_full(fullV(sp), n_kt - 1);
     reg_fence(acc);
     wg_fence();
-    issue_pv<D>(acc, pa, sV(sp));
+    issue_pv<DV>(acc, pa, sV(sp));
     wg_commit();
     wg_wait<0>();
     reg_fence(acc);
@@ -463,7 +471,7 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
   }
   unsigned char* const stage = smem + R::q_off;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
@@ -474,13 +482,13 @@ __global__ void __launch_bounds__(THREADS_BF16, D == 64 ? 3 : 2)
     }
   }
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  constexpr int CPR = DV / 8;  // 16-byte chunks a row
   for (int i = threadIdx.x; i < BQ * CPR; i += CONSUMERS) {
     const int row = i / CPR, ch = i % CPR;
     const int sq = q0 + row;
     if (sq < Sq) {
       const int off = (ch / 8) * PANEL + row * 128 + (((ch % 8) ^ (row % 8)) * 16);
-      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + sq) * H + h) * D + ch * 8) =
+      *reinterpret_cast<uint4*>(o + (((long long)b * Sq + sq) * H + h) * DV + ch * 8) =
           *reinterpret_cast<const uint4*>(stage + off);
     }
   }
@@ -536,7 +544,7 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kPos>
+template <int D, int DV, bool kPos>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                 int B, int H, int Sq, int Sk, Strides sq, Strides sk, Strides sv,
                 int causal, float scale, int device, cudaStream_t stream) {
@@ -544,20 +552,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   CUtensorMap tq, tk, tv;
   if (!encode(&tq, q, B, Sq, H, D, sq)) return ERR_MAP_Q;
   if (!encode(&tk, k, B, Sk, H, D, sk)) return ERR_MAP_Q - 1;
-  if (!encode(&tv, v, B, Sk, H, D, sv)) return ERR_MAP_Q - 2;
-  constexpr int smem = Ring<D>::bytes;
+  if (!encode(&tv, v, B, Sk, H, DV, sv)) return ERR_MAP_Q - 2;
+  constexpr int smem = Ring<D, DV>::bytes;
   // the shared-memory limit once per device for this instance
   static std::atomic<unsigned long long> ready{0};
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (!(ready.load() & bit)) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_bf16<D, kPos>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_bf16<D, DV, kPos>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem);
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit);
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel_bf16<D, kPos><<<grid, THREADS_BF16, smem, stream>>>(
+  flash_fwd_kernel_bf16<D, DV, kPos><<<grid, THREADS_BF16, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, H, Sq, Sk, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -570,20 +578,22 @@ constexpr int WARPS_F32 = 4;                 // each warp owns 16 q rows
 constexpr int THREADS_F32 = WARPS_F32 * 32;  // lanes 2r and 2r+1 share row r
 
 // Shared memory: q, k, v and probability tiles, rows padded by 16 bytes.
-template <int D>
+template <int D, int DV>
 struct LayoutF32 {
-  static constexpr int LD = D + 4;    // q/k/v row stride
+  static constexpr int LD = D + 4;    // q/k row stride
+  static constexpr int LDV = DV + 4;  // v row stride
   static constexpr int LDP = BK + 4;  // probability row stride
+  static_assert(LDV <= LD, "o is staged in the q tile's rows");
   static constexpr size_t q_off = 0;
   static constexpr size_t k_off = q_off + sizeof(float) * BQ * LD;
   static constexpr size_t v_off = k_off + sizeof(float) * BK * LD;
-  static constexpr size_t p_off = v_off + sizeof(float) * BK * LD;
+  static constexpr size_t p_off = v_off + sizeof(float) * BK * LDV;
   static constexpr size_t bytes = p_off + sizeof(float) * BQ * LDP;
 };
 
-// rows x D floats of sequence rows s0.. of (b, h) into a tile; rows at or past S
-// are zero, so a ragged edge adds nothing to a product.
-template <int D>
+// rows x D floats of sequence rows s0.. of (b, h) into a tile of row stride LD;
+// rows at or past S are zero, so a ragged edge adds nothing to a product.
+template <int D, int LD>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, Strides st,
                                               int b, int h, int s0, int S, int rows) {
   constexpr int CH = D / 4;
@@ -593,17 +603,17 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, Stri
     const int s = s0 + r;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (s < S) val = *reinterpret_cast<const float4*>(base + s * st.s + c);
-    *reinterpret_cast<float4*>(dst + r * LayoutF32<D>::LD + c) = val;
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS_F32)
     flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int H, int Sq, int Sk, Strides sq,
                          Strides sk, Strides sv, int causal, float scale) {
-  using L = LayoutF32<D>;
+  using L = LayoutF32<D, DV>;
   extern __shared__ __align__(16) unsigned char smem_f32[];
   float* Qs = reinterpret_cast<float*>(smem_f32 + L::q_off);
   float* Ks = reinterpret_cast<float*>(smem_f32 + L::k_off);
@@ -618,21 +628,21 @@ __global__ void __launch_bounds__(THREADS_F32)
   const int half = lane & 1;           // and its half of the columns
   const int qpos = q0 + r;
 
-  load_tile_f32<D>(Qs, q, sq, b, h, q0, Sq, BQ);
+  load_tile_f32<D, L::LD>(Qs, q, sq, b, h, q0, Sq, BQ);
 
   int n_kt = (Sk + BK - 1) / BK;
   if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);  // stop at the diagonal
 
   float m = NEG_INF, l = 0.0f;
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile_f32<D>(Ks, k, sk, b, h, k0, Sk, BK);
-    load_tile_f32<D>(Vs, v, sv, b, h, k0, Sk, BK);
+    load_tile_f32<D, L::LD>(Ks, k, sk, b, h, k0, Sk, BK);
+    load_tile_f32<DV, L::LDV>(Vs, v, sv, b, h, k0, Sk, BK);
     __syncthreads();
 
     // raw scores of this lane's half row: s[j] = q[r] . k[half + 2j]
@@ -676,13 +686,13 @@ __global__ void __launch_bounds__(THREADS_F32)
 
     // acc[i] = acc[i] * alpha + (P . V)[r, half + 2i]
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha;
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       const float pc = prow[c];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i)
-        acc[i] = fmaf(pc, Vs[c * L::LD + half + 2 * i], acc[i]);
+      for (int i = 0; i < DV / 2; ++i)
+        acc[i] = fmaf(pc, Vs[c * L::LDV + half + 2 * i], acc[i]);
     }
   }
 
@@ -692,34 +702,35 @@ __global__ void __launch_bounds__(THREADS_F32)
   __syncwarp();
   float* orow = Qs + r * L::LD;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) orow[half + 2 * i] = acc[i] / l_safe;
+  for (int i = 0; i < DV / 2; ++i) orow[half + 2 * i] = acc[i] / l_safe;
   if (half == 0 && qpos < Sq) lse[(long long)bh * Sq + qpos] = m + logf(l_safe);
   __syncwarp();
-  constexpr int CH = D / 4;
+  constexpr int CH = DV / 4;
   for (int i = lane; i < 16 * CH; i += 32) {
     const int rr = warp * 16 + i / CH, c = (i % CH) * 4;
     const int s = q0 + rr;
     if (s < Sq)
-      *reinterpret_cast<float4*>(o + (((long long)b * Sq + s) * H + h) * D + c) =
+      *reinterpret_cast<float4*>(o + (((long long)b * Sq + s) * H + h) * DV + c) =
           *reinterpret_cast<const float4*>(Qs + rr * L::LD + c);
   }
 }
 
-template <int D>
+template <int D, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                int H, int Sq, int Sk, Strides sq, Strides sk, Strides sv, int causal,
                float scale, int device, cudaStream_t stream) {
-  constexpr size_t smem = LayoutF32<D>::bytes;
+  constexpr size_t smem = LayoutF32<D, DV>::bytes;
   static std::atomic<unsigned long long> ready{0};
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (!(ready.load() & bit)) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel_f32<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit);
   }
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel_f32<D><<<grid, THREADS_F32, smem, stream>>>(
+  flash_fwd_kernel_f32<D, DV><<<grid, THREADS_F32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk, sq, sk, sv,
       causal, scale);
@@ -728,13 +739,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// q, k, v: [B, S, H, D] with the given element strides (last dim contiguous,
-// every stride and pointer 16-byte aligned); o: contiguous [B, Sq, H, D];
-// lse: contiguous fp32 [B*H, Sq]. dtype 0 is fp32, 1 is bf16; D is 64 or 128.
+// q, k: [B, S, H, D] and v: [B, S, H, Dv] with the given element strides (last dim
+// contiguous, every stride and pointer 16-byte aligned); o: contiguous
+// [B, Sq, H, Dv]; lse: contiguous fp32 [B*H, Sq]. dtype 0 is fp32, 1 is bf16;
+// (D, Dv) is (64, 64), (128, 128) or (192, 128).
 // Returns cudaGetLastError() after the launch (0 on success), or a negative code
 // when a tensor map cannot be made (flash_attn_fwd_error names it).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              float* lse, int B, int H, int Sq, int Sk, int D,
+                              float* lse, int B, int H, int Sq, int Sk, int D, int Dv,
                               int dtype, long long sqb, long long sqs, long long sqh,
                               long long skb, long long sks, long long skh,
                               long long svb, long long svs, long long svh,
@@ -746,22 +758,24 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   const Strides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh};
   auto st = static_cast<cudaStream_t>(stream);
   const bool pos = scale > 0.0f;
-  if (dtype == 1 && D == 64)
-    return pos ? launch_bf16<64, true>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv, causal,
-                                       scale, device, st)
-               : launch_bf16<64, false>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv,
-                                        causal, scale, device, st);
-  if (dtype == 1 && D == 128)
-    return pos ? launch_bf16<128, true>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv,
-                                        causal, scale, device, st)
-               : launch_bf16<128, false>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv,
-                                         causal, scale, device, st);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv, causal, scale,
-                          device, st);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv, causal, scale,
-                           device, st);
+#define HVD_FLASH_BF16(DQ, DO)                                                       \
+  if (dtype == 1 && D == DQ && Dv == DO)                                            \
+    return pos ? launch_bf16<DQ, DO, true>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv, \
+                                           causal, scale, device, st)              \
+               : launch_bf16<DQ, DO, false>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk,  \
+                                            sv, causal, scale, device, st);
+#define HVD_FLASH_F32(DQ, DO)                                                        \
+  if (dtype == 0 && D == DQ && Dv == DO)                                            \
+    return launch_f32<DQ, DO>(q, k, v, o, lse, B, H, Sq, Sk, sq, sk, sv, causal,    \
+                              scale, device, st);
+  HVD_FLASH_BF16(64, 64)
+  HVD_FLASH_BF16(128, 128)
+  HVD_FLASH_BF16(192, 128)
+  HVD_FLASH_F32(64, 64)
+  HVD_FLASH_F32(128, 128)
+  HVD_FLASH_F32(192, 128)
+#undef HVD_FLASH_BF16
+#undef HVD_FLASH_F32
   return (int)cudaErrorInvalidValue;
 }
 

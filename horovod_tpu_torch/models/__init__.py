@@ -22,6 +22,16 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     shard_state_dict,
 )
 
+# DeepSeek-V2 (MLA and DeepSeekMoE; no JAX counterpart)
+from horovod_tpu_torch.models.deepseek import (  # noqa: F401,E402
+    DeepseekMoE,
+    DeepseekV2,
+    DeepseekV2Config,
+    MLAttention,
+    SwiGLU,
+    make_deepseek_train_step,
+)
+
 # CNN zoo (the reference's published benchmark models) + BERT, imported
 # lazily by path, as in the JAX package: every entry is a
 # "module:constructor" returning a model (or BERT's config) when called

@@ -46,6 +46,7 @@ from horovod_tpu_torch.models._flax import (Dense, Embed, LayerNorm,
 from horovod_tpu_torch.models.scan_util import multi_step
 from horovod_tpu_torch.ops import autograd_collectives as ac
 from horovod_tpu_torch.ops.mesh_collectives import preduce
+from horovod_tpu_torch.parallel.mesh import shard_rows
 from horovod_tpu_torch.profiling import train_step
 
 
@@ -260,15 +261,7 @@ def shard_batch(batch: Mapping[str, torch.Tensor], mesh
     if mesh is None:
         return dict(batch)
     _tp_axis(mesh)
-    dp = mesh.axis("dp")
-    out = {}
-    for k, t in batch.items():
-        if t.shape[0] % dp.size:
-            raise ValueError(f"a batch of {t.shape[0]} rows does not split "
-                             f"over dp={dp.size}")
-        n = t.shape[0] // dp.size
-        out[k] = t.narrow(0, dp.index * n, n)
-    return out
+    return shard_rows(batch, mesh.axis("dp"))
 
 
 # -- loss and step -------------------------------------------------------------

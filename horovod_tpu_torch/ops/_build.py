@@ -41,7 +41,7 @@ _D, _GEO = ctypes.c_double, ctypes.POINTER(ctypes.c_longlong)
 # exports ``<name>_error`` for the message
 SIGNATURES = {
     "flash_attn_fwd": {
-        "flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        "flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                            _I, _F, _I, _P],
     },

@@ -9,12 +9,15 @@ row log-sum-exp added (:func:`plain_attention_with_lse`).
 The forward is the hand-written CUDA kernel ``csrc/flash_attn_fwd.cu`` for
 a CUDA tensor and the plain version for a CPU tensor; nothing else chooses.
 A CUDA tensor the kernel does not take (a dtype other than fp32 or bf16, a
-head dim other than 64 or 128, an unaligned stride) raises. The backward is
+pair of head dims it has no instance for, an unaligned stride) raises.
+q and k share one head dim and v may have its own (multi-head latent
+attention scores over 192 dims and weighs values of 128): the kernel's
+pairs are ``_KERNEL_HEAD_DIMS``; the plain versions take any. The backward is
 the JAX package's blockwise recompute, ported line for line to PyTorch: the
 reference leaves it to XLA, and this port leaves it to PyTorch's kernels.
 
-Layouts are the JAX package's: q/k/v/o ``[B, S, H, D]``, lse
-``[B*H, Sq]`` fp32 with row ``b*H + h``.
+Layouts are the JAX package's: q/k ``[B, S, H, D]``, v/o ``[B, S, H, Dv]``,
+lse ``[B*H, Sq]`` fp32 with row ``b*H + h``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from horovod_tpu_torch.ops import _build
 NEG_INF = -1e30
 BLOCK_K = 128          # the backward's key block, as in the JAX package
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+# (q/k head dim, v head dim) pairs the kernel has an instance for
+_KERNEL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -41,7 +45,8 @@ def plain_attention_with_lse(q, k, v, causal: bool = True,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version: ``_plain_attention`` in fp32, plus the
     row log-sum-exp the kernel emits. Used for CPU tensors and by the
-    checks that hold the kernel to it."""
+    checks that hold the kernel to it. v may have its own head dim; the
+    default scale is q's head dim to the −½."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = _scale(q, scale)
@@ -57,8 +62,9 @@ def plain_attention_with_lse(q, k, v, causal: bool = True,
 
 def flash_attn_fwd_cuda(q, k, v, causal: bool, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_attn_fwd.cu`` on CUDA tensors q/k/v
-    ``[B, S, H, D]``; returns ``(o, lse)``. Counts its launches in
+    """Launch ``csrc/flash_attn_fwd.cu`` on CUDA tensors q/k
+    ``[B, S, H, D]`` and v ``[B, S, H, Dv]``; returns ``(o, lse)``, o
+    ``[B, Sq, H, Dv]``. Counts its launches in
     ``flash_attn_fwd_cuda.launches``.
 
     Replaces ``_flash_kernel`` (``horovod_tpu/ops/pallas_attention.py``).
@@ -69,15 +75,17 @@ def flash_attn_fwd_cuda(q, k, v, causal: bool, scale: float
     source says more).
     """
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
+    Sk, Dv = k.shape[1], v.shape[-1]
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attn_fwd takes fp32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attn_fwd takes head dim 64 or 128, got {D}")
-    if k.shape != (B, Sk, H, D) or v.shape != k.shape:
+    if (D, Dv) not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attn_fwd takes head dims (q/k, v) of "
+                         f"{_KERNEL_HEAD_DIMS}, got ({D}, {Dv})")
+    if k.shape != (B, Sk, H, D) or v.shape != (B, Sk, H, Dv):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} do not match as [B, S, H, D]")
+                         f"{tuple(v.shape)} do not match as [B, S, H, D] and "
+                         f"[B, S, H, Dv]")
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError("flash_attn_fwd takes q/k/v on one CUDA device")
     vec = 16 // q.element_size()
@@ -87,14 +95,14 @@ def flash_attn_fwd_cuda(q, k, v, causal: bool, scale: float
             raise ValueError(f"flash_attn_fwd needs {name} with a contiguous "
                              f"last dim and 16-byte aligned rows, got strides "
                              f"{t.stride()}")
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
     lib = _build.library("flash_attn_fwd")
     err = lib.flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, Sq, Sk, D, _KERNEL_DTYPES[q.dtype],
+        B, H, Sq, Sk, D, Dv, _KERNEL_DTYPES[q.dtype],
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), scale, q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -107,9 +115,10 @@ flash_attn_fwd_cuda.launches = 0
 
 
 def flash_attn_fwd_flops(B: int, Sq: int, Sk: int, H: int, D: int,
-                         causal: bool) -> int:
-    """FLOPs of one forward: the products q·kᵀ and p·v, 2·D FLOPs each per
-    (query, key) pair and head, over the pairs the kernel computes — under
+                         causal: bool, Dv: Optional[int] = None) -> int:
+    """FLOPs of one forward: the products q·kᵀ and p·v, ``2·(D + Dv)`` per
+    (query, key) pair and head (``Dv`` defaults to ``D``), over the pairs
+    the kernel computes — under
     ``causal`` query row i meets keys 0..i (half the square and the
     diagonal, as ``chip_smoke.attention_cost`` counts). What
     :func:`horovod_tpu_torch.metrics.mfu.flops_per_step` adds for a call,
@@ -119,13 +128,13 @@ def flash_attn_fwd_flops(B: int, Sq: int, Sk: int, H: int, D: int,
         pairs = m * (m + 1) // 2 + (Sq - m) * Sk
     else:
         pairs = Sq * Sk
-    return 4 * B * H * D * pairs
+    return 2 * B * H * (D + (D if Dv is None else Dv)) * pairs
 
 
 def _flash_fwd(q, k, v, causal: bool, scale: float):
     B, Sq, H, D = q.shape
     mfu.count_kernel_flops(flash_attn_fwd_flops(B, Sq, k.shape[1], H, D,
-                                                causal))
+                                                causal, v.shape[-1]))
     if q.is_cuda:
         return flash_attn_fwd_cuda(q, k, v, causal, scale)
     with mfu.uncounted():
@@ -139,13 +148,14 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float):
     ``adj = rowsum(do·o) − dlse`` folding the lse cotangent into the row
     term. Under ``causal`` key block j reaches only q rows ≥ j·block, so
     those rows alone are recomputed (the JAX path for ≤ 64 blocks; its
-    full-row loop for longer sequences computes the same)."""
-    B, Sq, H, D = q.shape
+    full-row loop for longer sequences computes the same). q/k carry one
+    head dim and v/o/do their own."""
+    B, Sq, H, _ = q.shape
     Sk = k.shape[1]
     bk = BLOCK_K
 
     def fold(x, S):
-        return x.transpose(1, 2).reshape(B * H, S, D).float()
+        return x.transpose(1, 2).reshape(B * H, S, x.shape[-1]).float()
 
     qf, kf, vf = fold(q, Sq), fold(k, Sk), fold(v, Sk)
     of = fold(o, Sq)
@@ -175,7 +185,7 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float):
         dk[:, r0k:r0k + bk] = torch.einsum("bqk,bqd->bkd", ds, qs)
 
     def unfold(x, S, like):
-        return x.reshape(B, H, S, D).transpose(1, 2).to(like.dtype)
+        return x.reshape(B, H, S, x.shape[-1]).transpose(1, 2).to(like.dtype)
 
     return unfold(dq, Sq, q), unfold(dk, Sk, k), unfold(dv, Sk, v)
 
@@ -203,7 +213,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = True,
                              scale: Optional[float] = None):
     """Attention returning ``(o, lse)``: the normalized output
-    ``[B, Sq, H, D]`` and the per-row log-partition ``[B*H, Sq]`` fp32.
+    ``[B, Sq, H, Dv]`` and the per-row log-partition ``[B*H, Sq]`` fp32.
     Differentiable in both outputs."""
     return _FlashAttention.apply(q, k, v, causal, _scale(q, scale))
 
@@ -211,7 +221,8 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q/k/v ``[B, S, H, D]`` → ``[B, S, H, D]``; differentiable."""
+    """q/k ``[B, S, H, D]``, v ``[B, S, H, Dv]`` → ``[B, S, H, Dv]``;
+    differentiable."""
     return flash_attention_with_lse(q, k, v, causal, scale)[0]
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -202,6 +202,13 @@ def shard_batch(tokens: torch.Tensor, targets: torch.Tensor, mesh: Mesh
         return x
 
     return local(tokens), local(targets)
+
+
+def shard_rows(batch: Mapping[str, torch.Tensor], ax: Axis
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every tensor of a global batch: equal
+    contiguous blocks over ``ax`` (block ``ax.index``)."""
+    return {k: _block(t, ax, 0) for k, t in batch.items()}
 
 
 def _block(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:

@@ -117,6 +117,102 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev, dtype, D):
         attention.flash_attention(q, q, q)
 
 
+@pytest.mark.parametrize("Sq,Sk,dtype,causal,tol", [
+    (256, 256, torch.float32, True, 1e-4),
+    (130, 130, torch.float32, False, 1e-4),
+    (77, 200, torch.float32, True, 1e-4),
+    (4096, 4096, BF, True, 2e-2),
+    (200, 200, BF, True, 2e-2),
+    (200, 200, BF, False, 2e-2),
+    (65, 65, BF, True, 2e-2),
+    (64, 200, BF, False, 2e-2),
+    (130, 77, BF, True, 2e-2),
+])
+def test_flash_mla_instance_matches_plain(dev, Sq, Sk, dtype, causal, tol):
+    """The (192, 128) instance of multi-head latent attention: q/k of 192
+    dims, v a strided view of the fused [.., 128 + 128] up-projection, at
+    the softmax scale DeepSeek-V2 takes with YaRN."""
+    scale = 192 ** -0.5 * (0.1 * 0.707 * np.log(40.0) + 1.0) ** 2
+    q = _rand(dev, 2, Sq, 3, 192, dtype=dtype, seed=0)
+    k = _rand(dev, 2, Sk, 3, 192, dtype=dtype, seed=1)
+    kv = _rand(dev, 2, Sk, 3, 256, dtype=dtype, seed=2)
+    v = kv[..., 128:]
+    assert not v.is_contiguous()
+    before = attention.flash_attn_fwd_cuda.launches
+    o, lse = attention.flash_attention_with_lse(q, k, v, causal=causal,
+                                                scale=scale)
+    assert attention.flash_attn_fwd_cuda.launches == before + 1
+    o_ref, lse_ref = attention.plain_attention_with_lse(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == (2, Sq, 3, 128)
+    assert float((o.float() - o_ref.float()).abs().max()) <= tol
+    assert float((lse - lse_ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("Dqk,Dv", [(192, 64), (128, 192), (64, 128)])
+def test_flash_kernel_refuses_pairs_it_has_no_instance_for(dev, Dqk, Dv):
+    q = _rand(dev, 1, 16, 1, Dqk, dtype=BF)
+    v = _rand(dev, 1, 16, 1, Dv, dtype=BF)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q, v)
+
+
+def _nan_pools(dev):
+    """Fill the caching allocator's free blocks, small and large, with NaN,
+    so memory a kernel leaves unwritten reads NaN."""
+    junk = [torch.full((1 << 17,), float("nan"), device=dev)
+            for _ in range(512)]
+    junk.append(torch.full((1 << 28,), float("nan"), device=dev))
+    del junk
+
+
+@pytest.mark.parametrize("first,held", [(0, 8), (2, 4)])
+def test_dropless_moe_bf16_matches_a_loop_with_an_idle_expert(dev, first,
+                                                               held):
+    """The dropless layer's forward and backward in bfloat16 on the card
+    against a float32 loop over the held experts, with one held expert
+    that no token picks, on memory that held NaN: all 8 experts held (the
+    offsets cover every row) and 4 of 8 (the rows of pairs held elsewhere
+    trail the groups). The idle expert's weight gradients are zero."""
+    from horovod_tpu_torch.parallel import moe
+    T, M, F, E, k = 2048, 512, 256, 8, 3
+    idle = first + 1
+    x = (_rand(dev, T, M, seed=0)).to(BF).requires_grad_()
+    logits = _rand(dev, T, E, seed=1)
+    logits[:, idle] = -1e4
+    logits.requires_grad_()
+    wg, wu = (_rand(dev, held, F, M, seed=s).mul_(M ** -0.5)
+              .requires_grad_() for s in (2, 3))
+    wd = _rand(dev, held, M, F, seed=4).mul_(F ** -0.5).requires_grad_()
+    cot = _rand(dev, T, M, seed=5)
+    leaves = [x, logits, wg, wu, wd]
+    _nan_pools(dev)
+    y, routing, pairs = moe.dropless_moe(x, logits, k, first, held, wg, wu,
+                                         wd)
+    got = torch.autograd.grad((y.float() * cot).sum()
+                              + routing.weight.sum(), leaves)
+    assert int(pairs.counts[idle - first]) == 0
+    scores = torch.softmax(logits, -1)
+    weight, index = torch.topk(scores, k, -1)
+    xf = x.float()
+    want_y = torch.zeros(T, M, device=dev)
+    for e in range(held):
+        w_e = (weight * (index == first + e)).sum(-1, keepdim=True)
+        h = torch.nn.functional.silu(xf @ wg[e].t()) * (xf @ wu[e].t())
+        want_y = want_y + w_e * (h @ wd[e].t())
+    want = torch.autograd.grad((want_y * cot).sum() + weight.sum(), leaves)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+    assert y.dtype == BF and rel(y, want_y) <= 2e-2
+    for name, a, b in zip(["x", "logits", "gate", "up", "down"], got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert rel(a, b) <= 2e-2, name
+    for a in got[2:]:
+        assert float(a[idle - first].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("V,dtype", [(1000, torch.float32),
                                      (1001, torch.bfloat16),
                                      (32000, torch.bfloat16),
